@@ -6,24 +6,42 @@ Runs from the root of a checkout on a machine with one NVIDIA GPU, in phases;
 any failure raises, so the run exits non-zero and prints no final ok line.
 
   1. the card's name and power limit; refuse to run without a GPU;
-  2. build the CUDA kernels from the checkout's sources (nvcc);
-  3. each kernel against its plain PyTorch version on the card, at the
-     operators of the main-path problem (the level-0 flow system and the
-     6-column smoothing system), in float32, bfloat16 and float64, with
-     median times of kernel and plain version;
-  4. the reference-binary goldens in float64 on the card, through the kernels;
-  5. the main path at full size: tests/golden/cube.ply at the CLI's default
-     edge length (393,216 triangles) with the 256^2 golden textures
-     upsampled 8x to 2048^2, CLI defaults (float32, 10 levels),
-     from_texture_inputs -> run -> halfway_texture;
-  6. the result line.
+  2. build both CUDA libraries from the checkout's sources (one nvcc each,
+     started together);
+  3. the probe path: the seven capability-probe kernels through their entry
+     point (``python -m meshopticalflow_tpu_torch.kernels.probes``), then each
+     against its plain version and the reference script's numpy expectation,
+     with times, bounds and the one-call PyTorch yardstick;
+  4. the reference-binary goldens in float64 on the card: ref_vertex.ply,
+     ref_cube256.png through the CLI default (multigrid), and the same cube
+     with ``use_multigrid=False`` through the library, so both solvers stay
+     gated;
+  5. the Jacobi-PCG path at full size (``use_multigrid=False``):
+     tests/golden/cube.ply at the CLI's default edge length (393,216
+     triangles) with the 256^2 golden textures upsampled 8x to 2048^2;
+  6. the CLI default path at full width (multigrid): the cube subdivided to a
+     24,576-triangle root by the port's own subdivide_tracked, written as a
+     textured PLY, then CLI defaults (float32, 10 levels, edge length 0.006:
+     393,216 fine triangles), from_texture_inputs -> run -> halfway_texture;
+  7. each SpMV kernel against its plain version at the operators of that
+     problem (the f32 / bf16 / f64 flow and smoothing operators, the c1
+     operator, the rectangular transfers P0 and P0^T of both hierarchies),
+     with warm and cold-L2 times, the byte bound (stored non-zeros only),
+     and cuSPARSE's time on the same operator; then the split of one
+     multigrid PCG iteration, each part timed alone (the sweeps' share of
+     the levels is timed inside phase 6's run);
+  8. the result lines.
 
-The second-to-last line is a JSON record of the kernels; the last line is
-{"ok": true, "device": {...}}. Scratch files go to chiprun_out/chip_smoke/.
+Every phase that drives a path (3, 5, 6) sets the launch counts to 0 just
+before it and reads them just after. The second-to-last line is a JSON record
+of the nine kernels; the last line is {"ok": true, "device": {...}}. Scratch
+files and the full records go to chiprun_out/chip_smoke/.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -38,9 +56,16 @@ GOLD = os.path.join(REPO, "tests", "golden")
 WORK = os.path.join(REPO, "chiprun_out", "chip_smoke")
 # max |kernel - plain| / max |plain| allowed per value type
 KERNEL_TOL = {"float32": 1e-6, "bfloat16": 1e-6, "float64": 1e-12}
+# Published H100 SXM peaks (NVIDIA data sheet; at the full 700 W limit):
+# HBM3 rate, and the non-tensor-core rates of the SpMV's multiply-adds
+# (bf16 values are widened to f32 before the FMA).
+HBM_TB_S = 3.35
+PEAK_TFLOP_S = {"float32": 67.0, "bfloat16": 67.0, "float64": 34.0}
+MG_ROOT_FRACTION = 0.024       # root edge length: 24,576 triangles
+DEVICE = "cuda"
 
 
-def phase(n: int, msg: str) -> None:
+def phase(n, msg: str) -> None:
     print(f"[phase {n}] {msg}", flush=True)
 
 
@@ -51,8 +76,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, reps: int = 25, inner: int = 10) -> float:
-    """Median over ``reps`` CUDA-event windows of ``inner`` back-to-back calls."""
+# ----------------------------------------------------------------------------
+# Timing and bounds
+# ----------------------------------------------------------------------------
+
+def issue_ms(fn, reps: int = 25, inner: int = 10) -> float:
+    """Median over ``reps`` CUDA-event windows of ``inner`` back-to-back calls
+    issued as a caller issues them: the larger of the host's time to issue a
+    call and the device's time to run it."""
     import torch
 
     for _ in range(3):
@@ -70,53 +101,189 @@ def median_ms(fn, reps: int = 25, inner: int = 10) -> float:
     return float(np.median(times))
 
 
-def check_kernels(problem, spmv):
-    """Phase 3: kernels against plain versions at the main-path operators."""
-    import torch
-    from meshopticalflow_tpu_torch.flow import pipeline as P
-    from meshopticalflow_tpu_torch.flow.signal import _smooth_system
-    from meshopticalflow_tpu_torch.models.base import build_flow_system
+_CYCLES_PER_MS = []
 
-    arrays, cfg = problem.arrays, problem.config
-    smoothed, _ = P._stage_smooth(arrays, cfg.scalar_smooth_weight, cfg)
-    d_blocks, rhs_t, _, _, _ = P._stage_resample(arrays, problem.tfield, smoothed, cfg)
-    weight = torch.tensor(cfg.resolved_vf_smooth_weight(), dtype=problem.dtype,
-                          device=problem.device)
-    flow_vals, _, flow_rhs, _, _ = build_flow_system(arrays.basis, d_blocks, rhs_t,
-                                                     weight)
-    smooth_vals, smooth_b, _ = _smooth_system(arrays.smooth_ops, arrays.signals,
-                                              cfg.scalar_smooth_weight)
-    ops = {"spmv_ell": (arrays.basis.ell_cols, flow_vals, flow_rhs),
-           "spmv_ell_multi": (arrays.smooth_ops.cols, smooth_vals, smooth_b)}
+
+def _device_sleep(ms: float) -> None:
+    """Keep the device busy for about ``ms`` (torch.cuda._sleep, calibrated)."""
+    import torch
+
+    if not _CYCLES_PER_MS:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10 ** 6)
+        end.record()
+        end.synchronize()
+        _CYCLES_PER_MS.append(10 ** 6 / max(start.elapsed_time(end), 1e-3))
+    torch.cuda._sleep(int(ms * _CYCLES_PER_MS[0]))
+
+
+def median_ms(fn, reps: int = 25, inner: int = 10) -> float:
+    """Device time per call: median over ``reps`` CUDA-event windows of
+    ``inner`` back-to-back calls, each window queued behind a device sleep
+    longer than the host needs to issue it, so the window times the device
+    alone (operands that fit stay in L2 between the calls)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    cover_ms = 2e3 * max(host) * inner + 0.05
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        _device_sleep(cover_ms)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return float(np.median(times))
+
+
+_FLUSH = []
+
+
+def cold_ms(fn, reps: int = 15) -> float:
+    """Median of single calls, each after 256 MB of writes that evict L2."""
+    import torch
+
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(64 * 2 ** 20, dtype=torch.float32, device=DEVICE))
+    fn()
+    times = []
+    for _ in range(reps):
+        _FLUSH[0].zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def copy_rate_tb_s(nbytes: int) -> float:
+    """Device copy rate (bytes read + written per second, TB/s) of a buffer
+    of ``nbytes``: 1 GB measures HBM, 16 MB an L2-resident pair."""
+    import torch
+
+    src = torch.ones(nbytes // 4, dtype=torch.float32, device=DEVICE)
+    dst = torch.empty_like(src)
+    ms = median_ms(lambda: dst.copy_(src))
+    return 2 * nbytes / (ms * 1e-3) / 1e12
+
+
+def bound(nbytes: float, flops: float, dtype_name: str):
+    """(bound_ms, bound_by): the larger of bytes over the HBM peak and
+    operations over the peak rate of their type."""
+    t_bytes = nbytes / (HBM_TB_S * 1e12) * 1e3
+    t_ops = flops / (PEAK_TFLOP_S[dtype_name] * 1e12) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# ----------------------------------------------------------------------------
+# Phase 3: the probe path
+# ----------------------------------------------------------------------------
+
+def _probe_need(name: str, args, out):
+    """(bytes, operations) each probe's inputs need: the source elements it
+    actually reads (a gather reads only the rows or blocks its indices
+    name), its index arrays and its output."""
+    import torch
+
+    x = args[0]
+    if name == "take_along_axis rows (axis 0)":
+        read = int(torch.unique(args[1]).numel()) * x.shape[1] * 4 + _nbytes(args[1])
+        return read + _nbytes(out), 0
+    if name == "flat 1-D gather":
+        return int(torch.unique(args[1]).numel()) * 4 + _nbytes(args[1], out), 0
+    if name == "scalar-prefetch index_map":
+        blocks = int(torch.unique(args[1]).numel())
+        return blocks * args[2] * x.shape[1] * 4 + _nbytes(args[1], out), out.numel()
+    if name == "grid accumulation":
+        return _nbytes(x, out), x.numel() - out.numel()
+    if name == "manual HBM->VMEM DMA":
+        return 2 * _nbytes(out), 0
+    if name == "basic":
+        return _nbytes(x, out), x.numel()
+    return _nbytes(*[a for a in args if isinstance(a, torch.Tensor)], out), 0
+
+
+def _probe_library(name: str, args):
+    """One PyTorch call computing the probe's function, or None."""
+    import torch
+
+    x = args[0]
+    idx = args[1].long() if len(args) > 1 and isinstance(args[1], torch.Tensor) else None
+    calls = {
+        "basic": lambda: torch.mul(x, 2.0),
+        "take_along_axis rows (axis 0)": lambda: torch.gather(x, 0, idx),
+        "flat 1-D gather": lambda: torch.take(x, idx),
+        "take_along_axis lanes (axis 1)": lambda: torch.gather(x, 1, idx),
+        "grid accumulation": lambda: torch.sum(x, dim=1),
+        "manual HBM->VMEM DMA": lambda: x[args[1]:args[1] + args[2]].clone(),
+    }
+    return calls.get(name)   # block select needs an index_select and an add
+
+
+def probe_phase(probes):
+    """Phase 3: the probe entry point with counts from 0, then per-probe
+    checks and times."""
+    import torch
+
+    probes.reset_counts()
+    rc = probes.main([])
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in probes.KERNELS}
+    phase(3, f"probe entry point: exit status {rc}; launches {launches}")
+    if rc != 0:
+        raise RuntimeError("a probe kernel failed its check")
+    if min(launches.values()) == 0:
+        raise RuntimeError(f"a probe kernel was not launched: {launches}")
     report = {}
-    for name, (cols, vals, x) in ops.items():
-        kernel = getattr(spmv, name)
-        plain = getattr(spmv, name + "_plain")
-        report[name] = {"shape": list(cols.shape) + ([x.shape[1]] if x.dim() == 2 else [])}
-        for tname, vdt in (("float32", torch.float32), ("bfloat16", torch.bfloat16),
-                           ("float64", torch.float64)):
-            xdt = torch.float64 if vdt == torch.float64 else torch.float32
-            v = vals.to(vdt).contiguous()
-            xx = x.to(xdt).contiguous()
-            y = kernel(cols, v, xx)
-            ref = plain(cols, v, xx)
-            torch.cuda.synchronize()
-            if not (torch.isfinite(y).all() and torch.isfinite(ref).all()):
-                raise RuntimeError(f"{name} {tname}: non-finite output")
-            abs_err = float((y - ref).abs().max())
-            rel = abs_err / max(float(ref.abs().max()), 1e-300)
-            ms = median_ms(lambda: kernel(cols, v, xx))
-            plain_ms = median_ms(lambda: plain(cols, v, xx))
-            report[name][tname] = dict(max_abs_err=abs_err, rel_err=rel, ms=ms,
-                                       plain_ms=plain_ms)
-            phase(3, f"{name} {tname} {tuple(cols.shape)} x{tuple(xx.shape)}: "
-                     f"max|d|/max|y| {rel:.3e} (tol {KERNEL_TOL[tname]:.0e}), "
-                     f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us")
-            if not rel <= KERNEL_TOL[tname]:
-                raise RuntimeError(f"{name} {tname}: kernel disagrees with plain "
-                                   f"version ({rel:.3e} > {KERNEL_TOL[tname]:.0e})")
+    for name, ref, kernel, builder in probes.PROBES:
+        res = probes.run_probe(kernel, builder, torch.device(DEVICE))
+        if not (res["correct"] and res["matches_plain"]):
+            raise RuntimeError(f"probe {name}: {res}")
+        args, _ = probes.probe_args(builder, torch.device(DEVICE))
+        plain = probes.PLAINS[kernel]
+        out = kernel(*args)
+        nbytes, flops = _probe_need(name, args, out)
+        b_ms, b_by = bound(nbytes, flops, "float32")
+        lib = _probe_library(name, args)
+        rec = dict(replaces=ref, launches=launches[kernel.__name__],
+                   max_abs_err=res["max_abs_err"], ms=median_ms(lambda: kernel(*args)),
+                   issue_ms=issue_ms(lambda: kernel(*args)),
+                   plain_ms=median_ms(lambda: plain(*args)), bound_ms=b_ms,
+                   bound_by=b_by, bytes=nbytes,
+                   library_ms=None if lib is None else median_ms(lib))
+        report[kernel.__name__] = rec
+        phase(3, f"{name} ({kernel.__name__}): matches plain and script; kernel "
+                 f"{rec['ms'] * 1e3:.2f} us ({rec['issue_ms'] * 1e3:.2f} us issued back "
+                 f"to back), plain {rec['plain_ms'] * 1e3:.2f} us, "
+                 f"library {'n/a' if lib is None else f'{rec['library_ms'] * 1e3:.2f} us'}"
+                 f", bound {b_ms * 1e3:.4f} us ({nbytes} B)")
     return report
 
+
+# ----------------------------------------------------------------------------
+# Phase 4: goldens
+# ----------------------------------------------------------------------------
 
 def vertex_blend(device):
     """The per-vertex halfway blend (float64) of the a/b golden pair."""
@@ -133,6 +300,15 @@ def vertex_blend(device):
     return (adv[0] + adv[1]) / 2.0
 
 
+def _texture_scores(path):
+    from meshopticalflow_tpu_torch.io.png import read_png_rgb
+
+    a = read_png_rgb(path).astype(float)
+    b = read_png_rgb(os.path.join(GOLD, "ref_cube256.png")).astype(float)
+    return (float(np.sqrt(((a - b) ** 2).mean())), float((a == b).all(-1).mean()),
+            float((np.abs(a - b) <= 1).all(-1).mean()))
+
+
 def check_goldens(spmv):
     """Phase 4: the vertex and 256^2 texture goldens in float64 on the card.
 
@@ -140,15 +316,18 @@ def check_goldens(spmv):
     is an integer to float64 precision (a knife edge), the card's other sum
     orders may land one ulp below it. The CPU run must reproduce the golden
     byte for byte; the card must match it on every channel that is not such
-    a knife edge, and be within one level on those that are."""
-    from meshopticalflow_tpu_torch.apps.optical_flow import main as cli
+    a knife edge, and be within one level on those that are. The texture
+    golden runs twice: the CLI default (multigrid, which must reach the
+    rectangular transfers) and use_multigrid=False (Jacobi-PCG)."""
+    from meshopticalflow_tpu_torch.apps.optical_flow import (
+        build_parser, config_from_args, main as cli)
+    from meshopticalflow_tpu_torch.flow.pipeline import FlowProblem
     from meshopticalflow_tpu_torch.io.ply import read_triangle_mesh
-    from meshopticalflow_tpu_torch.io.png import read_png_rgb
 
     ref = read_triangle_mesh(os.path.join(GOLD, "ref_vertex.ply")).colors.astype(int)
     cpu = vertex_blend("cpu")
     spmv.reset_counts()
-    gpu = vertex_blend("cuda")
+    gpu = vertex_blend(DEVICE)
     cpu_u8 = np.clip(cpu, 0, 255).astype(np.uint8).astype(int)
     gpu_u8 = np.clip(gpu, 0, 255).astype(np.uint8).astype(int)
     if not np.array_equal(cpu_u8, ref):
@@ -161,25 +340,45 @@ def check_goldens(spmv):
              f"channels exact, {int(off.sum())} off by one at knife edges "
              f"({int(knife.sum())} knife-edge channels); max |cuda - cpu| blend "
              f"{float(np.abs(gpu - cpu).max()):.3e}")
-    out_t = os.path.join(WORK, "golden_cube256.png")
-    t0 = time.time()
-    cli(["--mesh", os.path.join(GOLD, "cube.ply"), "--in", os.path.join(GOLD, "mA.png"),
-         os.path.join(GOLD, "mB.png"), "--out", out_t, "--eLength", "0.06",
-         "--dtype", "float64", "--device", "cuda"])
-    secs = time.time() - t0
-    a = read_png_rgb(out_t).astype(float)
-    b = read_png_rgb(os.path.join(GOLD, "ref_cube256.png")).astype(float)
-    rmse = float(np.sqrt(((a - b) ** 2).mean()))
-    exact = float((a == b).all(-1).mean())
-    within1 = float((np.abs(a - b) <= 1).all(-1).mean())
-    counts = spmv.counts()
-    phase(4, f"ref_cube256.png: rmse {rmse:.3f} (< 2.2), exact {exact:.4f} (> 0.97), "
-             f"within1 {within1:.4f} (> 0.995), {secs:.1f} s; launches {counts}")
-    if not (rmse < 2.2 and exact > 0.97 and within1 > 0.995):
-        raise RuntimeError("256^2 golden outside the thresholds on the card")
-    if counts["spmv_ell"] == 0 or counts["spmv_ell_multi"] == 0 or counts["plain_on_cuda"]:
-        raise RuntimeError(f"golden runs did not go through the kernels: {counts}")
+    argv = ["--mesh", os.path.join(GOLD, "cube.ply"), "--in", os.path.join(GOLD, "mA.png"),
+            os.path.join(GOLD, "mB.png"), "--out", "", "--eLength", "0.06",
+            "--dtype", "float64", "--device", DEVICE]
+    out = {}
+    for solver in ("multigrid", "jacobi"):
+        path = os.path.join(WORK, f"golden_cube256_{solver}.png")
+        argv[argv.index("--out") + 1] = path
+        spmv.reset_counts()
+        t0 = time.time()
+        if solver == "multigrid":
+            cli(argv)
+        else:
+            cfg = dataclasses.replace(config_from_args(build_parser().parse_args(argv)),
+                                      use_multigrid=False)
+            prob = FlowProblem.from_texture_inputs(argv[1], (argv[3], argv[4]), cfg,
+                                                   device=DEVICE)
+            prob.run()
+            prob.write_output(path)
+        secs = time.time() - t0
+        counts = spmv.counts()
+        rmse, exact, within1 = _texture_scores(path)
+        out[solver] = dict(rmse=rmse, exact=exact, within1=within1, seconds=secs,
+                           launches=counts)
+        phase(4, f"ref_cube256.png ({solver}): rmse {rmse:.3f} (< 2.2), exact "
+                 f"{exact:.4f} (> 0.97), within1 {within1:.4f} (> 0.995), {secs:.1f} s; "
+                 f"launches {counts}")
+        if not (rmse < 2.2 and exact > 0.97 and within1 > 0.995):
+            raise RuntimeError(f"256^2 golden ({solver}) outside the thresholds on the card")
+        if counts["spmv_ell"] == 0 or counts["spmv_ell_multi"] == 0 or counts["plain_on_cuda"]:
+            raise RuntimeError(f"golden run ({solver}) did not go through the kernels: "
+                               f"{counts}")
+        if (counts["rectangular"] > 0) != (solver == "multigrid"):
+            raise RuntimeError(f"golden run ({solver}) took the wrong solver: {counts}")
+    return out
 
+
+# ----------------------------------------------------------------------------
+# Phases 5 and 6: the main paths at full size
+# ----------------------------------------------------------------------------
 
 def upsampled_inputs(factor: int = 8):
     """mA/mB upsampled by pixel repetition into the work directory."""
@@ -195,33 +394,85 @@ def upsampled_inputs(factor: int = 8):
     return paths, big.shape[0]
 
 
-def main_path(spmv, paths, size):
-    """Phase 5: one draw of the main path at full size, timed like bench.py."""
+def write_mg_root(fraction: float = MG_ROOT_FRACTION) -> str:
+    """The cube subdivided by the port's subdivide_tracked to a root of the
+    demo mesh's kind (24,576 triangles at 0.024), written with its UVs."""
+    from meshopticalflow_tpu_torch.geometry.subdivide import subdivide_tracked
+    from meshopticalflow_tpu_torch.io.ply import read_triangle_mesh, write_ply_textured
+
+    data = read_triangle_mesh(os.path.join(GOLD, "cube.ply"))
+    diag = float(np.linalg.norm(data.vertices.max(0) - data.vertices.min(0)))
+    tris, verts, uvs, _, _ = subdivide_tracked(data.faces, data.vertices, data.face_uvs,
+                                               fraction * diag)
+    path = os.path.join(WORK, f"cube_root_{len(tris)}.ply")
+    write_ply_textured(path, verts, tris, uvs, fmt="binary")
+    return path
+
+
+LEVEL_KEYS = ("level", "smooth_seconds", "trace_seconds", "solve_seconds", "seconds",
+              "flow_iters", "smooth_iters", "flow_res", "smooth_res", "alignment_error",
+              "trace_exhausted")
+MG_LEVEL_KEYS = ("coarse_factor_s", "smooth_factor_s", "flow_gb_per_iter",
+                 "smooth_gb_per_iter")
+
+
+@contextlib.contextmanager
+def timed_sweeps(spans: list):
+    """Time every exact c1 solve (solvers.mg._inner1_exact: both banded
+    sweeps) while the block runs: a CUDA event pair around each call, read
+    after the block, so the run gains no host synchronization. Each span runs
+    from the device reaching the call's first operation to its last one
+    finishing, host issue gaps included."""
     import torch
-    from meshopticalflow_tpu_torch.apps.optical_flow import build_parser, config_from_args
+    from meshopticalflow_tpu_torch.solvers import mg
+
+    real = mg._inner1_exact
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*args)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    mg._inner1_exact = timed
+    try:
+        yield
+    finally:
+        mg._inner1_exact = real
+
+
+def drive(spmv, mesh, paths, size, cfg, tag: str, n: int,
+          during_run=contextlib.nullcontext):
+    """One draw through the user's entry points (from_texture_inputs -> run
+    -> halfway_texture) with the launch counts set to 0 just before it and
+    read just after; ``during_run()`` is entered around ``run``. Returns
+    (problem, record)."""
+    import torch
     from meshopticalflow_tpu_torch.flow.pipeline import FlowProblem
     from meshopticalflow_tpu_torch.io.png import write_png_rgb
 
-    mesh = os.path.join(GOLD, "cube.ply")
-    cfg = config_from_args(build_parser().parse_args(
-        ["--mesh", mesh, "--in", *paths, "--out", "unused.png"]))
-    spmv.reset_counts()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    spmv.reset_counts()
     t0 = time.time()
-    prob = FlowProblem.from_texture_inputs(mesh, tuple(paths), cfg, device="cuda")
+    prob = FlowProblem.from_texture_inputs(mesh, tuple(paths), cfg, device=DEVICE)
     torch.cuda.synchronize()
     init_s = time.time() - t0
     t0 = time.time()
-    res = prob.run()
+    with during_run():
+        res = prob.run()
     torch.cuda.synchronize()
     run_s = time.time() - t0
     t0 = time.time()
     blend = prob.halfway_texture()
     out_s = time.time() - t0
     counts = spmv.counts()
-    out_path = os.path.join(WORK, f"halfway_{size}.png")
-    write_png_rgb(out_path, np.flipud(blend))
+    write_png_rgb(os.path.join(WORK, f"halfway_{tag}_{size}.png"), np.flipud(blend))
     total_s = init_s + run_s + out_s
+    keys = LEVEL_KEYS + (MG_LEVEL_KEYS if prob.hier is not None else ())
     rec = dict(triangles=prob.mesh.n_triangles, vertices=prob.mesh.n_vertices,
                flow_unknowns=prob.arrays.basis.n_coeffs,
                flow_ell_width=prob.arrays.basis.ell_width,
@@ -230,40 +481,267 @@ def main_path(spmv, paths, size):
                init_s=init_s, levels_s=run_s, advect_s=out_s, total_s=total_s,
                e2e_texels_per_sec=size * size / total_s,
                init_profile=prob.init_profile,
-               levels=[{k: m[k] for k in (
-                   "level", "smooth_seconds", "trace_seconds", "solve_seconds",
-                   "seconds", "flow_iters", "smooth_iters", "flow_res",
-                   "smooth_res", "alignment_error", "trace_exhausted")}
-                   for m in res.metrics],
+               levels=[{k: m[k] for k in keys} for m in res.metrics],
                halfway_exhausted=prob.last_advect_stats["exhausted"],
                launches=counts, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    with open(os.path.join(WORK, "main_path.json"), "w") as f:
+    if prob.hier is not None:
+        fpack, vpack = prob.hier.patch.mg_pack, prob.hier.vcoarse.mg_pack
+        rec["mg"] = dict(
+            c1_unknowns=fpack.n1, vertex_coarse_unknowns=vpack.n1,
+            patch_unknowns=fpack.n2, vertex_patch_unknowns=vpack.n2,
+            flow_pack=fpack.stats, smooth_pack=vpack.stats,
+            flow_band=dict(bw=prob.hier.patch.c1_band.bw, m=prob.hier.patch.c1_band.m),
+            smooth_band=dict(bw=prob.hier.vcoarse.c1_band.bw,
+                             m=prob.hier.vcoarse.c1_band.m))
+    with open(os.path.join(WORK, f"main_path_{tag}.json"), "w") as f:
         json.dump(rec, f, indent=1)
     for m in rec["levels"]:
-        phase(5, "level {level}: smooth {smooth_seconds:.3f} s, trace "
-                 "{trace_seconds:.3f} s, solve {solve_seconds:.3f} s, flow_iters "
-                 "{flow_iters:.0f}, smooth_iters {smooth_iters:.0f}, flow_res "
-                 "{flow_res:.3e}, alignment_error {alignment_error:.6f}, "
-                 "trace_exhausted {trace_exhausted:.0f}".format(**m))
-    phase(5, f"{rec['triangles']} triangles, {rec['flow_unknowns']} flow unknowns "
+        extra = ""
+        if prob.hier is not None:
+            extra = (", c1 factor {coarse_factor_s:.3f} s (smoothing {smooth_factor_s:.3f} s),"
+                     " flow {flow_gb_per_iter:.4f} GB/iter, smoothing "
+                     "{smooth_gb_per_iter:.4f} GB/iter").format(**m)
+        phase(n, ("level {level}: smooth {smooth_seconds:.3f} s, trace "
+                  "{trace_seconds:.3f} s, solve {solve_seconds:.3f} s, flow_iters "
+                  "{flow_iters:.0f}, smooth_iters {smooth_iters:.0f}, flow_res "
+                  "{flow_res:.3e}, alignment_error {alignment_error:.6f}").format(**m) + extra)
+    phase(n, f"{rec['triangles']} triangles, {rec['flow_unknowns']} flow unknowns "
              f"(ELL width {rec['flow_ell_width']}), {size}^2 atlas: init {init_s:.2f} s, "
              f"levels {run_s:.2f} s, halfway {out_s:.2f} s, e2e "
-             f"{rec['e2e_texels_per_sec']:.1f} texels/s; launches {counts}; "
-             f"peak {rec['peak_mem_gb']:.2f} GB")
+             f"{rec['e2e_texels_per_sec']:.1f} texels/s; peak {rec['peak_mem_gb']:.2f} GB")
+    phase(n, "init profile " + json.dumps({k: round(v, 3)
+                                           for k, v in prob.init_profile.items()}))
+    phase(n, f"launches {counts}")
+    if "mg" in rec:
+        phase(n, f"hierarchy {json.dumps(rec['mg'])}")
     metrics = [v for m in rec["levels"] for k, v in m.items() if k != "level"]
     metrics += [init_s, run_s, out_s]
     if not all(math.isfinite(float(v)) for v in metrics):
-        raise RuntimeError("non-finite metric on the main path")
+        raise RuntimeError(f"{tag}: non-finite metric on the main path")
     if len(rec["levels"]) != cfg.levels:
-        raise RuntimeError(f"ran {len(rec['levels'])} levels, expected {cfg.levels}")
-    if counts["spmv_ell"] == 0 or counts["spmv_ell_multi"] == 0:
-        raise RuntimeError(f"a kernel was not launched on the main path: {counts}")
+        raise RuntimeError(f"{tag}: ran {len(rec['levels'])} levels, expected {cfg.levels}")
     if counts["plain_on_cuda"] != 0:
-        raise RuntimeError(f"a plain version ran on CUDA tensors: {counts}")
+        raise RuntimeError(f"{tag}: a plain version ran on CUDA tensors: {counts}")
     if blend.shape != (size, size, 3) or blend.dtype != np.uint8:
-        raise RuntimeError(f"halfway texture has shape {blend.shape} {blend.dtype}")
-    return rec, counts
+        raise RuntimeError(f"{tag}: halfway texture has shape {blend.shape} {blend.dtype}")
+    return prob, rec
 
+
+def jacobi_path(spmv, paths, size, levels: int):
+    """Phase 5: the Jacobi-PCG path (use_multigrid=False) at full size."""
+    from meshopticalflow_tpu_torch.apps.optical_flow import build_parser, config_from_args
+
+    mesh = os.path.join(GOLD, "cube.ply")
+    cfg = dataclasses.replace(config_from_args(build_parser().parse_args(
+        ["--mesh", mesh, "--in", *paths, "--out", "unused.png",
+         "--iterations", str(levels)])), use_multigrid=False)
+    prob, rec = drive(spmv, mesh, paths, size, cfg, "jacobi", 5)
+    counts = rec["launches"]
+    if counts["spmv_ell"] == 0 or counts["spmv_ell_multi"] == 0:
+        raise RuntimeError(f"jacobi: a kernel was not launched: {counts}")
+    if prob.hier is not None or counts["rectangular"] or counts["bf16"]:
+        raise RuntimeError(f"jacobi: the multigrid path ran: {counts}")
+    return rec
+
+
+def multigrid_path(spmv, root, paths, size):
+    """Phase 6: the CLI default (multigrid) at full width."""
+    from meshopticalflow_tpu_torch.apps.optical_flow import build_parser, config_from_args
+
+    cfg = config_from_args(build_parser().parse_args(
+        ["--mesh", root, "--in", *paths, "--out", "unused.png"]))
+    import torch
+
+    if not cfg.use_multigrid:
+        raise RuntimeError("the CLI default is not the multigrid configuration")
+    spans = []
+    prob, rec = drive(spmv, root, paths, size, cfg, "multigrid", 6,
+                      lambda: timed_sweeps(spans))
+    torch.cuda.synchronize()
+    sweeps_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+    rec["sweeps"] = dict(c1_solves=len(spans), seconds=sweeps_s,
+                         share_of_levels=sweeps_s / rec["levels_s"])
+    phase(6, f"exact c1 solves (two banded sweeps each) timed in this run: {len(spans)} "
+             f"calls, {sweeps_s:.3f} s of the levels' {rec['levels_s']:.3f} s "
+             f"({100 * rec['sweeps']['share_of_levels']:.1f} %)")
+    counts = rec["launches"]
+    for form in ("square", "bf16", "rectangular", "spmv_ell_multi"):
+        if counts[form] == 0:
+            raise RuntimeError(f"multigrid: no {form} launches on the main path: {counts}")
+    if prob.hier is None:
+        raise RuntimeError("multigrid: no hierarchy was built")
+    worst = max(m["flow_res"] for m in rec["levels"])
+    if worst > 10 * cfg.flow_refine_tol:
+        raise RuntimeError(f"multigrid: a level's flow_res {worst:.3e} is above "
+                           f"10 x flow_refine_tol")
+    return prob, rec
+
+
+# ----------------------------------------------------------------------------
+# Phase 7: the SpMV kernels at the multigrid problem's operators
+# ----------------------------------------------------------------------------
+
+def _library_ms(cols, vals, x, n_in):
+    """cuSPARSE through torch.sparse: CSR (the ELL arrays, row pointers of
+    stride W) times x, in the values' type. Returns (ms, None) or
+    (None, reason)."""
+    import torch
+
+    n, w = cols.shape
+    crow = torch.arange(0, n * w + 1, w, dtype=torch.int32, device=cols.device)
+    xx = x.to(vals.dtype)
+    try:
+        csr = torch.sparse_csr_tensor(crow, cols.reshape(-1), vals.reshape(-1),
+                                      size=(n, n_in))
+        csr @ xx
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        return None, "not supported: " + (str(e).splitlines() or [repr(e)])[0][:120]
+    return median_ms(lambda: csr @ xx), None
+
+
+def mg_operators(prob):
+    """(name, cols, vals, x) at the operators the multigrid main path runs,
+    rebuilt from the problem's final state."""
+    import torch
+    from meshopticalflow_tpu_torch.flow import pipeline as P
+    from meshopticalflow_tpu_torch.flow.signal import _smooth_system
+    from meshopticalflow_tpu_torch.models.base import build_flow_system, coarse_system_vals
+    from meshopticalflow_tpu_torch.solvers.mg import bf16_values
+
+    arrays, cfg, hier = prob.arrays, prob.config, prob.hier
+    s_weight = cfg.scalar_smooth_weight
+    smoothed, _, _ = P._stage_smooth(arrays, s_weight, cfg, hier)
+    d_blocks, rhs_t, _, _, _ = P._stage_resample(arrays, prob.tfield, smoothed, cfg)
+    weight = torch.tensor(cfg.resolved_vf_smooth_weight(), dtype=prob.dtype,
+                          device=prob.device)
+    flow_vals, _, rhs, _, scale = build_flow_system(arrays.basis, d_blocks, rhs_t, weight)
+    c1_vals, _ = coarse_system_vals(hier.coarse.coarse_dev, d_blocks, scale, weight)
+    sm_vals, sm_b, _ = _smooth_system(arrays.smooth_ops, arrays.signals, s_weight)
+    fpack, vpack = hier.patch.mg_pack, hier.vcoarse.mg_pack
+    fcols, vcols = arrays.basis.ell_cols, arrays.smooth_ops.cols
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=DEVICE, dtype=torch.float32)
+
+    n1, nv1 = fpack.n1, vpack.n1
+    c = sm_b.shape[1]
+    return [
+        ("spmv_ell", "flow", fcols, flow_vals, rhs),
+        ("spmv_ell", "flow", fcols, bf16_values(flow_vals, fpack.fine_canon), rhs),
+        ("spmv_ell", "flow", fcols, flow_vals.double(), rhs.double()),
+        ("spmv_ell", "c1", hier.coarse.coarse_dev.ell_cols, c1_vals, rand(n1)),
+        ("spmv_ell", "P0", fpack.p0.cols, fpack.p0.vals, rand(n1)),
+        ("spmv_ell", "P0^T", fpack.p0t.cols, fpack.p0t.vals, rhs),
+        ("spmv_ell_multi", "smoothing", vcols, sm_vals, sm_b),
+        ("spmv_ell_multi", "smoothing", vcols, bf16_values(sm_vals, vpack.fine_canon), sm_b),
+        ("spmv_ell_multi", "smoothing", vcols, sm_vals.double(), sm_b.double()),
+        ("spmv_ell_multi", "vertex P0", vpack.p0.cols, vpack.p0.vals, rand(nv1, c)),
+        ("spmv_ell_multi", "vertex P0^T", vpack.p0t.cols, vpack.p0t.vals, sm_b),
+    ]
+
+
+def check_spmv(spmv, prob, l2_tb_s: float):
+    """Phase 7: every SpMV form against its plain version, timed."""
+    import torch
+
+    report = []
+    for name, op, cols, vals, x in mg_operators(prob):
+        kernel, plain = getattr(spmv, name), getattr(spmv, name + "_plain")
+        tname = str(vals.dtype).removeprefix("torch.")
+        x = x.contiguous()
+        vals = vals.contiguous()
+        n_in = x.shape[0]
+        y = kernel(cols, vals, x)
+        ref = plain(cols, vals, x)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(y).all() and torch.isfinite(ref).all()):
+            raise RuntimeError(f"{name} {op} {tname}: non-finite output")
+        abs_err = float((y - ref).abs().max())
+        rel = abs_err / max(float(ref.abs().max()), 1e-300)
+        # the product needs only the stored non-zeros (a padding slot holds a
+        # zero value) as CSR: an int32 index and a value each, n_out + 1 row
+        # pointers, x read once and y written once
+        nnz = int((vals != 0).sum())
+        nbytes = nnz * (4 + vals.element_size()) + 4 * (cols.shape[0] + 1) + _nbytes(x, y)
+        b_ms, b_by = bound(nbytes, 2 * nnz * (x.shape[1] if x.dim() == 2 else 1), tname)
+        lib_ms, lib_note = _library_ms(cols, vals, x, n_in)
+        rec = dict(name=name, operator=op, dtype=tname, shape=list(cols.shape),
+                   x_shape=list(x.shape), nnz=nnz, max_abs_err=abs_err, rel_err=rel,
+                   ms=median_ms(lambda: kernel(cols, vals, x)),
+                   ms_cold=cold_ms(lambda: kernel(cols, vals, x)),
+                   issue_ms=issue_ms(lambda: kernel(cols, vals, x)),
+                   plain_ms=median_ms(lambda: plain(cols, vals, x)),
+                   bytes=nbytes, bound_ms=b_ms, bound_by=b_by,
+                   bound_l2_ms=nbytes / (l2_tb_s * 1e12) * 1e3,
+                   library_ms=lib_ms, library_note=lib_note)
+        report.append(rec)
+        lib = f"{lib_ms * 1e3:.2f} us" if lib_ms is not None else lib_note
+        phase(7, f"{name} {op} {tname} {tuple(cols.shape)} x{tuple(x.shape)}: "
+                 f"max|d|/max|y| {rel:.3e} (tol {KERNEL_TOL[tname]:.0e}); kernel "
+                 f"{rec['ms'] * 1e3:.2f} us warm, {rec['ms_cold'] * 1e3:.2f} us cold, "
+                 f"{rec['issue_ms'] * 1e3:.2f} us issued back to back; "
+                 f"plain {rec['plain_ms'] * 1e3:.2f} us; cuSPARSE {lib}; bound "
+                 f"{b_ms * 1e3:.2f} us HBM, {rec['bound_l2_ms'] * 1e3:.2f} us L2 "
+                 f"({nbytes / 1e6:.1f} MB, {nnz} non-zeros in {cols.numel()} slots)")
+        if not rel <= KERNEL_TOL[tname]:
+            raise RuntimeError(f"{name} {op} {tname}: kernel disagrees with plain "
+                               f"version ({rel:.3e} > {KERNEL_TOL[tname]:.0e})")
+    return report
+
+
+def iteration_split(prob):
+    """One multigrid PCG iteration of the last level's flow system, each
+    part timed alone: the exact c1 solve (the two banded sweeps), the whole
+    V-cycle, the whole iteration; and one c1 factorization."""
+    import torch
+    from meshopticalflow_tpu_torch.flow import pipeline as P
+    from meshopticalflow_tpu_torch.models import base
+    from meshopticalflow_tpu_torch.solvers import mg
+
+    arrays, cfg, hier = prob.arrays, prob.config, prob.hier
+    smoothed, _, _ = P._stage_smooth(arrays, cfg.scalar_smooth_weight, cfg, hier)
+    d_blocks, rhs_t, _, _, _ = P._stage_resample(arrays, prob.tfield, smoothed, cfg)
+    w = torch.tensor(cfg.resolved_vf_smooth_weight(), dtype=prob.dtype, device=prob.device)
+    sys_vals, _, rhs, diag, scale = base.build_flow_system(arrays.basis, d_blocks, rhs_t, w)
+    solver = base._make_mg_solver(hier.coarse, hier.patch, d_blocks, scale, w, sys_vals,
+                                  diag, cfg.mg_cheb_k, cfg.mg_nu, cfg.mg_fine_cheb, True)
+    r1 = torch.ones(hier.patch.mg_pack.n1, dtype=prob.dtype, device=prob.device)
+    zero = torch.zeros_like(rhs)
+    rz0 = torch.ones((), dtype=prob.dtype, device=prob.device)
+    vsolver, vb = P._vertex_mg_solver(arrays.smooth_ops, arrays.signals, hier,
+                                      cfg.scalar_smooth_weight)
+    rv = torch.ones((hier.vcoarse.mg_pack.n1, vb.shape[1]), dtype=prob.dtype,
+                    device=prob.device)
+    parts = dict(
+        smooth_c1_solve=lambda: mg._inner1_exact(vsolver.c1_dinv, vsolver.c1_pbelow,
+                                                 vsolver.c1_band, rv),
+        c1_solve=lambda: mg._inner1_exact(solver.c1_dinv, solver.c1_pbelow,
+                                          solver.c1_band, r1),
+        cycle=lambda: solver._precondition(rhs),
+        iteration=lambda: solver._chunk(zero, rhs, zero, rz0, 1))
+    out = dict(factor_s=solver.factor_seconds, panels=int(solver.c1_dinv.shape[0]),
+               panel_width=int(solver.c1_dinv.shape[1]),
+               band_width=int(solver.c1_pbelow.shape[1]))
+    for key, fn in parts.items():
+        out[key + "_device_ms"] = median_ms(fn, reps=9, inner=3)
+        out[key + "_issued_ms"] = issue_ms(fn, reps=9, inner=3)
+    out["device_idle_share_of_iteration"] = 1 - (out["iteration_device_ms"]
+                                                 / out["iteration_issued_ms"])
+    phase(7, "one flow PCG iteration: {iteration_issued_ms:.3f} ms issued ({iteration_device_ms:.3f}"
+             " ms of device time); V-cycle {cycle_issued_ms:.3f} ms ({cycle_device_ms:.3f});"
+             " exact c1 solve, two sweeps over {panels} panels of {panel_width}: "
+             "{c1_solve_issued_ms:.3f} ms ({c1_solve_device_ms:.3f}); c1 factorization "
+             "{factor_s:.3f} s".format(**out))
+    phase(7, f"device idle {100 * out['device_idle_share_of_iteration']:.1f} % of the "
+             f"iteration; smoothing c1 solve "
+             f"{out['smooth_c1_solve_issued_ms']:.3f} ms "
+             f"({out['smooth_c1_solve_device_ms']:.3f})")
+    return out
+
+
+# ----------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -271,49 +749,69 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this smoke run needs an NVIDIA GPU")
+    t_start = time.time()
     card = card_line()
     phase(1, f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     sys.path.insert(0, REPO)
-    from meshopticalflow_tpu_torch.flow.pipeline import FlowProblem
-    from meshopticalflow_tpu_torch.kernels import spmv
+    from meshopticalflow_tpu_torch.kernels import build, probes, spmv
 
     os.makedirs(WORK, exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.time()
-    lib = spmv.build_library()
-    spmv._library()
-    phase(2, f"built {os.path.relpath(lib, REPO)} in {time.time() - t0:.2f} s")
+    libs = build.build_all([spmv.LIBRARY, probes.LIBRARY])
+    spmv.LIBRARY.load()
+    probes.LIBRARY.load()
+    phase(2, f"built {', '.join(os.path.relpath(p, REPO) for p in libs.values())} "
+             f"in {time.time() - t0:.2f} s")
+
+    probe_report = probe_phase(probes)
+    goldens = check_goldens(spmv)
 
     paths, size = upsampled_inputs()
-    from meshopticalflow_tpu_torch.apps.optical_flow import build_parser, config_from_args
-    cfg = config_from_args(build_parser().parse_args(
-        ["--mesh", "m", "--in", *paths, "--out", "o"]))
-    t0 = time.time()
-    prob = FlowProblem.from_texture_inputs(os.path.join(GOLD, "cube.ply"), tuple(paths),
-                                           cfg, device="cuda")
-    phase(3, f"main-path problem built in {time.time() - t0:.1f} s")
-    report = check_kernels(prob, spmv)
+    jacobi = jacobi_path(spmv, paths, size, levels=10)
+    torch.cuda.empty_cache()
+
+    root = write_mg_root()
+    prob, mg_rec = multigrid_path(spmv, root, paths, size)
+
+    rates = dict(hbm_copy_tb_s=copy_rate_tb_s(2 ** 30), l2_copy_tb_s=copy_rate_tb_s(2 ** 24))
+    phase(7, f"measured copy rates: HBM {rates['hbm_copy_tb_s']:.3f} TB/s (1 GB), "
+             f"L2-resident {rates['l2_copy_tb_s']:.3f} TB/s (16 MB); published HBM "
+             f"{HBM_TB_S} TB/s")
+    spmv_report = check_spmv(spmv, prob, rates["l2_copy_tb_s"])
+    split = iteration_split(prob)
     del prob
     torch.cuda.empty_cache()
 
-    check_goldens(spmv)
+    def row(name, op, dtype="float32"):
+        return next(r for r in spmv_report
+                    if r["name"] == name and r["operator"] == op and r["dtype"] == dtype)
 
-    torch.cuda.reset_peak_memory_stats()
-    rec, counts = main_path(spmv, paths, size)
-
-    replaces = {"spmv_ell": "meshopticalflow_tpu/kernels/pallas_spmv.py:76",
-                "spmv_ell_multi": "meshopticalflow_tpu/kernels/pallas_spmv.py:395"}
-    kernels = [dict(name=name, route="cuda",
-                    source="meshopticalflow_tpu_torch/csrc/spmv_ell.cu",
-                    replaces=replaces[name], launches=counts[name],
-                    max_abs_err=report[name]["float32"]["max_abs_err"],
-                    ms=report[name]["float32"]["ms"],
-                    plain_ms=report[name]["float32"]["plain_ms"])
-               for name in ("spmv_ell", "spmv_ell_multi")]
+    kernels = []
+    for name, op, line in (("spmv_ell", "flow", 76), ("spmv_ell_multi", "smoothing", 395)):
+        r = row(name, op)
+        kernels.append(dict(
+            name=name, route="cuda", source="meshopticalflow_tpu_torch/csrc/spmv_ell.cu",
+            replaces=f"meshopticalflow_tpu/kernels/pallas_spmv.py:{line}",
+            launches=mg_rec["launches"][name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], ms_cold=r["ms_cold"], issue_ms=r["issue_ms"],
+            launches_jacobi_path=jacobi["launches"][name]))
+    for fn_name, rec in probe_report.items():
+        kernels.append(dict(
+            name=fn_name, route="cuda", source="meshopticalflow_tpu_torch/csrc/probes.cu",
+            replaces=rec["replaces"], launches=rec["launches"],
+            max_abs_err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
+            bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+            library_ms=rec["library_ms"], issue_ms=rec["issue_ms"]))
+    elapsed = time.time() - t_start
     with open(os.path.join(WORK, "kernels.json"), "w") as f:
-        json.dump(report, f, indent=1)
+        json.dump(dict(card=card, rates=rates, spmv=spmv_report, probes=probe_report,
+                       iteration_split=split, sweeps=mg_rec["sweeps"], goldens=goldens,
+                       seconds=elapsed), f, indent=1)
+    phase(8, f"all phases passed in {elapsed:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,8 +6,9 @@ Usage:
     python -m meshopticalflow_tpu_torch.apps.optical_flow \
         --in A.ply B.ply --out result.ply [options]
 
-The port runs the Whitney basis with Jacobi-PCG solves (no multigrid), so
-the reference CLI's --vfMode, --cMode, --divFree, --hostSolve, --flowBackend,
+The port runs the reference CLI's default configuration: the Whitney basis
+with geometric multigrid on the subdivision hierarchy (texture mode). The
+reference CLI's --vfMode, --cMode, --divFree, --hostSolve, --flowBackend,
 --debug and --serve flags are not taken. ``--device cuda`` (the default)
 raises when no GPU is available; it never falls back to the CPU.
 """
@@ -79,7 +80,6 @@ def config_from_args(args) -> FlowConfig:
         log_space=args.log,
         nearest=args.nearest,
         dtype=args.dtype,
-        use_multigrid=False,
     )
 
 

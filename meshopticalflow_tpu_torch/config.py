@@ -149,16 +149,21 @@ class FlowConfig:
 def require_supported(config: FlowConfig) -> None:
     """Refuse the settings whose code paths this package does not have.
 
-    The port runs the Whitney basis with the plain Jacobi-PCG solves
-    (``use_multigrid=False``) of the reference package. The multigrid knobs
-    (``flow_mg_levels``, ``mg_*``, ``flow_refine_tol``, ``flow_refine_floor``)
-    have no effect with ``use_multigrid=False`` in either package, and
-    ``artifact_cache`` only speeds up the reference package's init; none of
-    them changes a result here.
+    The port runs the Whitney basis with the reference package's default
+    solvers: with ``use_multigrid`` (the default) and a subdivided mesh, the
+    multigrid PCGs of solvers/mg.py (exact banded coarse solve, 3-level
+    fallback, ``mg_cheb_k``, ``mg_nu``, ``mg_fine_cheb``) inside float64
+    refinement (``flow_refine_tol``, ``flow_refine_floor``); otherwise the
+    plain Jacobi-PCG solves. Not ported: the 2-level XLA backend
+    (``flow_mg_levels`` other than 3) and bfloat16 coarse solve panels
+    (``mg_c1_bf16``). ``artifact_cache`` only speeds up the reference
+    package's init and changes no result here.
     """
     refused = []
-    if config.use_multigrid:
-        refused.append("use_multigrid=True (pass use_multigrid=False)")
+    if config.use_multigrid and config.flow_mg_levels != 3:
+        refused.append(f"flow_mg_levels={config.flow_mg_levels}")
+    if config.use_multigrid and config.mg_c1_bf16:
+        refused.append("mg_c1_bf16=True")
     if config.flow_backend != "auto":
         refused.append(f"flow_backend={config.flow_backend!r}")
     if VectorFieldMode(config.vf_mode) != VectorFieldMode.WHITNEY:

@@ -12,7 +12,10 @@
 // work on 128x128 block-ELL tiles of an RCM-permuted copy, a workaround
 // for Mosaic's missing row gather; Hopper gathers x natively, so these
 // kernels read the ELL arrays as they are and the per-level revalue step
-// is the identity.
+// is the identity. x is indexed only through cols, so the same kernels take
+// rectangular operators (the multigrid transfers P0 and P0^T): n is the
+// number of output rows, and the wrapper checks once per operator that
+// every column lies inside x.
 //
 // Bound. Both products do 2 flops per 8-12 streamed bytes: they are bound
 // by the bytes streamed from device memory. At the main path's level-0

@@ -1,0 +1,337 @@
+"""Hopper capability probes: hand-written CUDA kernels and their plain twins.
+
+The seven kernels of ``csrc/probes.cu`` replace the Mosaic capability probes
+of the reference package's ``scripts/probe_pallas.py``: each exercises, on
+Hopper, the capability its probe tested on the TPU (see the source's header).
+Every wrapper launches its kernel for CUDA tensors or raises, and takes its
+plain PyTorch version for CPU tensors; it counts its launches in
+``<wrapper>.launches`` and its plain version counts CUDA calls in
+``<plain>.cuda_calls``, as kernels/spmv.py does.
+
+Entry point (one ``[ok]`` / ``[FAIL]`` line per probe, exit status 1 if any
+probe fails, as the reference script prints them):
+
+    python -m meshopticalflow_tpu_torch.kernels.probes [--device cuda|cpu]
+
+Each probe runs on the reference script's own inputs (its ``arange`` arrays)
+and is held against the script's numpy expectation and, on the card, against
+its plain version.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import sys
+from typing import Callable, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from meshopticalflow_tpu_torch.kernels.build import CudaLibrary, raise_on, stream_of
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    sigs = {"probe_scale": [p, p, i64, p],
+            "probe_row_gather": [p, p, p, i64, i32, p],
+            "probe_flat_gather": [p, p, p, i64, p],
+            "probe_lane_gather": [p, p, p, i64, i32, p],
+            "probe_block_select": [p, p, p, i32, i64, p],
+            "probe_accumulate": [p, p, i32, i32, i64, p],
+            "probe_bulk_copy": [p, p, i64, p]}
+    for name, args in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = i32
+
+
+LIBRARY = CudaLibrary("probes", "probes.cu", _bind)
+
+
+def _check(name: str, *tensors: torch.Tensor) -> bool:
+    """Same device, contiguous, f32 data / int32 indices; True on CUDA."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: operands on different devices")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+        if t.dtype not in (torch.float32, torch.int32):
+            raise TypeError(f"{name}: float32 data and int32 indices, got {t.dtype}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev.type == "cuda"
+
+
+def _launch(wrapper, entry: str, *args) -> None:
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    call = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(dev):
+        err = getattr(LIBRARY.load(), entry)(*call, stream_of(dev))
+    raise_on(err, entry)
+    wrapper.launches += 1
+
+
+def _plain(fn):
+    """Mark a plain version: count the calls it gets with CUDA tensors."""
+    def counted(*args):
+        if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+            counted.cuda_calls += 1
+        return fn(*args)
+    counted.cuda_calls = 0
+    counted.__name__ = fn.__name__
+    counted.__doc__ = fn.__doc__
+    return counted
+
+
+# -- plain versions -----------------------------------------------------------
+
+@_plain
+def scale_plain(x):
+    return x * 2.0
+
+
+@_plain
+def row_gather_plain(x, idx):
+    return torch.gather(x, 0, idx.long())
+
+
+@_plain
+def flat_gather_plain(x, idx):
+    return x[idx.long()]
+
+
+@_plain
+def lane_gather_plain(x, idx):
+    return torch.gather(x, 1, idx.long())
+
+
+@_plain
+def block_select_plain(x, sel, block_rows: int):
+    w = x.shape[1]
+    return (x.reshape(-1, block_rows, w).index_select(0, sel.long()) + 1.0).reshape(-1, w)
+
+
+@_plain
+def accumulate_plain(x):
+    return x.sum(dim=1).reshape(-1, x.shape[-1])
+
+
+@_plain
+def bulk_copy_plain(x, start: int, rows: int):
+    return x[start:start + rows].clone()
+
+
+# -- kernels ------------------------------------------------------------------
+
+def scale(x):
+    """o = 2 x (p_basic)."""
+    if not _check("scale", x):
+        return scale_plain(x)
+    o = torch.empty_like(x)
+    _launch(scale, "probe_scale", x, o, x.numel())
+    return o
+
+
+def row_gather(x, idx):
+    """o[i, j] = x[idx[i, j], j] for x (N, W), idx (M, W) (p_take_along_axis_rows)."""
+    if x.dim() != 2 or idx.dim() != 2 or idx.shape[1] != x.shape[1]:
+        raise ValueError("row_gather: x (N, W) and idx (M, W)")
+    if not _check("row_gather", x, idx):
+        return row_gather_plain(x, idx)
+    o = torch.empty(idx.shape, dtype=x.dtype, device=x.device)
+    _launch(row_gather, "probe_row_gather", x, idx, o, idx.numel(), x.shape[1])
+    return o
+
+
+def flat_gather(x, idx):
+    """o = x[idx] for a 1-D x and any-shaped idx (p_flat_gather)."""
+    if x.dim() != 1:
+        raise ValueError("flat_gather: x must be 1-D")
+    if not _check("flat_gather", x, idx):
+        return flat_gather_plain(x, idx)
+    o = torch.empty(idx.shape, dtype=x.dtype, device=x.device)
+    _launch(flat_gather, "probe_flat_gather", x, idx, o, idx.numel())
+    return o
+
+
+def lane_gather(x, idx):
+    """o[i, j] = x[i, idx[i, j]] for x, idx (M, W) (p_dynamic_gather_lanes)."""
+    if x.dim() != 2 or idx.shape != x.shape:
+        raise ValueError("lane_gather: x and idx (M, W)")
+    if not _check("lane_gather", x, idx):
+        return lane_gather_plain(x, idx)
+    o = torch.empty_like(x)
+    _launch(lane_gather, "probe_lane_gather", x, idx, o, x.numel(), x.shape[1])
+    return o
+
+
+def block_select(x, sel, block_rows: int):
+    """Output block b = x's block sel[b] + 1, blocks of ``block_rows`` rows
+    (p_scalar_prefetch_indexmap)."""
+    if x.dim() != 2 or x.shape[0] % block_rows or sel.dim() != 1:
+        raise ValueError("block_select: x (nblocks * block_rows, W), sel (S,)")
+    if not _check("block_select", x, sel):
+        return block_select_plain(x, sel, block_rows)
+    o = torch.empty((sel.shape[0] * block_rows, x.shape[1]), dtype=x.dtype,
+                    device=x.device)
+    _launch(block_select, "probe_block_select", x, sel, o, sel.shape[0],
+            block_rows * x.shape[1])
+    return o
+
+
+def accumulate(x):
+    """o[b] = sum_k x[b, k] for x (B, K, R, W) -> (B * R, W) (p_accumulate_grid)."""
+    if x.dim() != 4:
+        raise ValueError("accumulate: x (B, K, R, W)")
+    if not _check("accumulate", x):
+        return accumulate_plain(x)
+    b, k, r, w = x.shape
+    o = torch.empty((b * r, w), dtype=x.dtype, device=x.device)
+    _launch(accumulate, "probe_accumulate", x, o, b, k, r * w)
+    return o
+
+
+def bulk_copy(x, start: int, rows: int):
+    """Rows [start, start + rows) of x (N, W) through a bulk async copy into
+    shared memory (p_dma_hbm_to_vmem)."""
+    if x.dim() != 2 or not 0 <= start <= start + rows <= x.shape[0]:
+        raise ValueError("bulk_copy: rows out of range")
+    w = x.shape[1]
+    if (start * w) % 4 or (rows * w) % 4:
+        raise ValueError("bulk_copy: the copied range must be whole 16-byte units")
+    if not _check("bulk_copy", x):
+        return bulk_copy_plain(x, start, rows)
+    o = torch.empty((rows, w), dtype=x.dtype, device=x.device)
+    src = x.view(-1)[start * w:]
+    _launch(bulk_copy, "probe_bulk_copy", src, o, rows * w)
+    return o
+
+
+KERNELS = (scale, row_gather, flat_gather, lane_gather, block_select, accumulate,
+           bulk_copy)
+PLAINS = {scale: scale_plain, row_gather: row_gather_plain,
+          flat_gather: flat_gather_plain, lane_gather: lane_gather_plain,
+          block_select: block_select_plain, accumulate: accumulate_plain,
+          bulk_copy: bulk_copy_plain}
+for _k in KERNELS:
+    _k.launches = 0
+
+
+def reset_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+        PLAINS[k].cuda_calls = 0
+
+
+# -- the reference script's inputs and expectations ---------------------------
+
+# (name, reference probe (scripts/probe_pallas.py line), kernel, args builder,
+#  numpy expectation); args are numpy arrays or ints, as the probe builds them.
+def _inputs_basic():
+    x = np.arange(8 * 128, dtype=np.float32).reshape(8, 128)
+    return (x,), x * 2.0
+
+
+def _inputs_rows():
+    n, m = 256, 64
+    x = np.arange(n * 128, dtype=np.float32).reshape(n, 128)
+    idx = np.broadcast_to((np.arange(m, dtype=np.int32) * 3 % n)[:, None], (m, 128))
+    return (x, np.ascontiguousarray(idx)), np.take(x, idx[:, 0], axis=0)
+
+
+def _inputs_flat():
+    n = 2048
+    x = np.arange(n, dtype=np.float32)
+    idx = (np.arange(8 * 128, dtype=np.int32) * 7 % n).reshape(8, 128)
+    return (x, idx), x[idx]
+
+
+def _inputs_lanes():
+    x = np.arange(8 * 128, dtype=np.float32).reshape(8, 128)
+    idx = (np.arange(8 * 128, dtype=np.int32) * 5 % 128).reshape(8, 128)
+    return (x, idx), np.take_along_axis(x, idx, axis=1)
+
+
+def _inputs_select():
+    nblocks, bs = 8, 128
+    x = np.arange(nblocks * bs * 128, dtype=np.float32).reshape(nblocks * bs, 128)
+    sel = np.asarray([3, 1, 4, 1], np.int32)
+    expect = np.concatenate([x[s * bs:(s + 1) * bs] + 1.0 for s in sel])
+    return (x, sel, bs), expect
+
+
+def _inputs_accumulate():
+    x = np.arange(4 * 3 * 8 * 128, dtype=np.float32).reshape(4, 3, 8, 128)
+    return (x,), x.sum(1).reshape(4 * 8, 128)
+
+
+def _inputs_dma():
+    x = np.arange(512 * 128, dtype=np.float32).reshape(512, 128)
+    return (x, 128, 128), x[128:256]
+
+
+PROBES: List[Tuple[str, str, Callable, Callable]] = [
+    ("basic", "scripts/probe_pallas.py:30", scale, _inputs_basic),
+    ("take_along_axis rows (axis 0)", "scripts/probe_pallas.py:40", row_gather,
+     _inputs_rows),
+    ("flat 1-D gather", "scripts/probe_pallas.py:58", flat_gather, _inputs_flat),
+    ("take_along_axis lanes (axis 1)", "scripts/probe_pallas.py:74", lane_gather,
+     _inputs_lanes),
+    ("scalar-prefetch index_map", "scripts/probe_pallas.py:89", block_select,
+     _inputs_select),
+    ("grid accumulation", "scripts/probe_pallas.py:110", accumulate,
+     _inputs_accumulate),
+    ("manual HBM->VMEM DMA", "scripts/probe_pallas.py:130", bulk_copy, _inputs_dma),
+]
+
+
+def probe_args(builder, device) -> Tuple[tuple, np.ndarray]:
+    """A probe's inputs on ``device`` (arrays to tensors) and its expectation."""
+    args, expect = builder()
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 if isinstance(a, np.ndarray) else a for a in args), expect
+
+
+def run_probe(kernel, builder, device) -> Dict:
+    """One probe: kernel output against the numpy expectation and, on the
+    card, against the plain version (all values are small integers in f32,
+    so every comparison is exact)."""
+    args, expect = probe_args(builder, device)
+    out = kernel(*args)
+    if out.is_cuda:
+        torch.cuda.synchronize()
+    got = out.cpu().numpy()
+    plain = PLAINS[kernel](*args).cpu().numpy()
+    return dict(correct=bool(got.shape == expect.shape and np.array_equal(got, expect)),
+                matches_plain=bool(np.array_equal(got, plain)),
+                max_abs_err=float(np.abs(got - plain).max()) if got.shape == plain.shape
+                else float("inf"))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("probes: torch.cuda.is_available() is false")
+    print(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'}")
+    failed = 0
+    for name, _, kernel, builder in PROBES:
+        try:
+            res = run_probe(kernel, builder, device)
+            ok = res["correct"] and res["matches_plain"]
+            print(f"[{'ok' if ok else 'FAIL'}]{'   ' if ok else ' '}{name}: "
+                  f"correct={res['correct']} matches_plain={res['matches_plain']}")
+        except Exception as e:   # report every probe, as the reference script does
+            ok = False
+            msg = (str(e).splitlines() or [repr(e)])[0][:160]
+            print(f"[FAIL] {name}: {type(e).__name__}: {msg}")
+        failed += not ok
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,106 +6,69 @@ kernels (meshopticalflow_tpu/kernels/pallas_spmv.py):
     spmv_ell(cols, vals, x)        y = A x         <- _spmv_kernel
     spmv_ell_multi(cols, vals, X)  Y = A X, C <= 8 <- _spmv_multi_kernel
 
-A is the padded-ELL pair the level assembles: ``cols`` (N, W) int32 and
-``vals`` (N, W), row-major; padding slots hold value 0 and a real column.
-Value types: float32 values with float32 x; bfloat16 values with float32 x
-(f32 accumulation, f32 result); float64 values with float64 x.
+A is a padded-ELL operator: ``cols`` (N_out, W) int32 and ``vals``
+(N_out, W), row-major; padding slots hold value 0 and a real column. x has
+N_in rows, any N_in: square operators (N_in = N_out) and the rectangular
+multigrid transfers P0 (fine <- coarse) and P0^T alike, as the TPU kernel
+takes them with independent row and column permutations
+(pallas_spmv.py:41-42). Every column index must be below N_in; that is
+checked once where an operator is built (``check_columns``), not per
+launch. Value types: float32 values with float32 x; bfloat16 values with
+float32 x (f32 accumulation, f32 result); float64 values with float64 x.
 
 A CUDA tensor always launches the kernel or raises. A CPU tensor goes to the
 plain PyTorch version (``spmv_ell_plain`` / ``spmv_ell_multi_plain``, a
 gather plus a sum over W). Each wrapper counts its kernel launches in
 ``<wrapper>.launches``; each plain version counts the calls it gets with CUDA
 tensors in ``<plain>.cuda_calls`` (the wrappers never make such a call, so
-on the main path that count stays 0).
+on the main path that count stays 0). The launches are also split by form
+in ``LAUNCHES_BY_FORM`` (square f32/f64, bf16, rectangular), which the smoke
+run reads to show that each form of the main path reached the card.
 
-The kernels are compiled by nvcc at first use into a shared library under
-``_build/`` beside this package's sources, keyed by a hash of the sources,
-and loaded with ctypes.
+The kernels are compiled by nvcc at first use (kernels/build.py) and loaded
+with ctypes.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-from pathlib import Path
+from collections import Counter
 
+import numpy as np
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-_SOURCES = (_PKG / "csrc" / "spmv_ell.cu",)
-BUILD_DIR = _PKG / "_build"
+from meshopticalflow_tpu_torch.kernels.build import CudaLibrary, raise_on, stream_of
+
 MAX_MULTI_COLUMNS = 8
 
 _VALUE_TYPES = {torch.float32: ("f32", torch.float32),
                 torch.bfloat16: ("bf16", torch.float32),
                 torch.float64: ("f64", torch.float64)}
 
-_lib = None
-_lib_lock = threading.Lock()
+
+def _bind(lib: ctypes.CDLL) -> None:
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    for tag in ("f32", "bf16", "f64"):
+        fn = getattr(lib, f"spmv_ell_{tag}")
+        fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, ptr]
+        fn.restype = i32
+        fn = getattr(lib, f"spmv_ell_multi_{tag}")
+        fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
+        fn.restype = i32
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    cand = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
-    return found
+LIBRARY = CudaLibrary("spmv_ell", "spmv_ell.cu", _bind)
+LAUNCHES_BY_FORM: Counter = Counter()
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256()
-    for src in _SOURCES:
-        digest.update(src.read_bytes())
-    return BUILD_DIR / f"libspmv_ell_{digest.hexdigest()[:16]}.so"
-
-
-def build_library() -> Path:
-    """Compile the kernels (once per source hash) and return the library path."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp,
-           *map(str, _SOURCES)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, out)   # atomic: concurrent builders race harmlessly
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
-
-
-def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
-            ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-            for tag in ("f32", "bf16", "f64"):
-                fn = getattr(lib, f"spmv_ell_{tag}")
-                fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, ptr]
-                fn.restype = i32
-                fn = getattr(lib, f"spmv_ell_multi_{tag}")
-                fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
-                fn.restype = i32
-            _lib = lib
-    return _lib
+def check_columns(cols, n_in: int) -> None:
+    """Host-side bound check of an operator's column indices (cols may be a
+    numpy array or a tensor): every index in [0, n_in). Called once where a
+    pack or operator is built; the kernels themselves do not check."""
+    c = cols.detach().cpu().numpy() if isinstance(cols, torch.Tensor) else np.asarray(cols)
+    if c.size and (int(c.min()) < 0 or int(c.max()) >= n_in):
+        raise ValueError(f"ELL column indices span [{int(c.min())}, {int(c.max())}], "
+                         f"outside the {n_in} rows of x")
 
 
 def _check(name: str, cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
@@ -124,10 +87,11 @@ def _check(name: str, cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
     if x.dtype != x_dtype:
         raise TypeError(f"{name}: {vals.dtype} values take {x_dtype} x, got "
                         f"{x.dtype}")
-    if x.dim() != x_ndim or x.shape[0] != cols.shape[0]:
-        want = "(N,)" if x_ndim == 1 else "(N, C)"
-        raise ValueError(f"{name}: x must be {want} with N = {cols.shape[0]}, "
-                         f"got {tuple(x.shape)}")
+    if x.dim() != x_ndim:
+        want = "(N_in,)" if x_ndim == 1 else "(N_in, C)"
+        raise ValueError(f"{name}: x must be {want}, got {tuple(x.shape)}")
+    if x.shape[0] == 0 and cols.numel() > 0:
+        raise ValueError(f"{name}: x has no rows for a {tuple(cols.shape)} operator")
     if not (cols.device == vals.device == x.device):
         raise ValueError(f"{name}: operands on different devices "
                          f"({cols.device}, {vals.device}, {x.device})")
@@ -157,33 +121,34 @@ spmv_ell_plain.cuda_calls = 0
 spmv_ell_multi_plain.cuda_calls = 0
 
 
-def _stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+def _count_form(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> None:
+    if cols.shape[0] != x.shape[0]:
+        LAUNCHES_BY_FORM["rectangular"] += 1
+    elif vals.dtype == torch.bfloat16:
+        LAUNCHES_BY_FORM["bf16"] += 1
+    else:
+        LAUNCHES_BY_FORM["square"] += 1
 
 
 def spmv_ell(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """y = A x for a padded-ELL operator; x (N,)."""
+    """y (N_out,) = A x for a padded-ELL operator; x (N_in,)."""
     x_dtype = _check("spmv_ell", cols, vals, x, 1)
     if not x.is_cuda:
         return spmv_ell_plain(cols, vals, x)
     n, w = cols.shape
     y = torch.empty(n, dtype=x_dtype, device=x.device)
-    fn = getattr(_library(), f"spmv_ell_{_VALUE_TYPES[vals.dtype][0]}")
+    fn = getattr(LIBRARY.load(), f"spmv_ell_{_VALUE_TYPES[vals.dtype][0]}")
     with torch.cuda.device(x.device):
         err = fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(), y.data_ptr(),
-                 n, w, _stream(x.device))
-    _raise_on(err, "spmv_ell")
+                 n, w, stream_of(x.device))
+    raise_on(err, "spmv_ell")
     spmv_ell.launches += 1
+    _count_form(cols, vals, x)
     return y
 
 
 def spmv_ell_multi(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Y = A X for a padded-ELL operator; X (N, C) with 1 <= C <= 8."""
+    """Y (N_out, C) = A X for a padded-ELL operator; X (N_in, C), 1 <= C <= 8."""
     x_dtype = _check("spmv_ell_multi", cols, vals, x, 2)
     c = x.shape[1]
     if not 1 <= c <= MAX_MULTI_COLUMNS:
@@ -193,12 +158,13 @@ def spmv_ell_multi(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> t
         return spmv_ell_multi_plain(cols, vals, x)
     n, w = cols.shape
     y = torch.empty((n, c), dtype=x_dtype, device=x.device)
-    fn = getattr(_library(), f"spmv_ell_multi_{_VALUE_TYPES[vals.dtype][0]}")
+    fn = getattr(LIBRARY.load(), f"spmv_ell_multi_{_VALUE_TYPES[vals.dtype][0]}")
     with torch.cuda.device(x.device):
         err = fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(), y.data_ptr(),
-                 n, w, c, _stream(x.device))
-    _raise_on(err, "spmv_ell_multi")
+                 n, w, c, stream_of(x.device))
+    raise_on(err, "spmv_ell_multi")
     spmv_ell_multi.launches += 1
+    _count_form(cols, vals, x)
     return y
 
 
@@ -210,10 +176,14 @@ def reset_counts() -> None:
     """Zero the launch counts and the plain-on-CUDA call counts."""
     spmv_ell.launches = spmv_ell_multi.launches = 0
     spmv_ell_plain.cuda_calls = spmv_ell_multi_plain.cuda_calls = 0
+    LAUNCHES_BY_FORM.clear()
 
 
 def counts() -> dict:
     return {"spmv_ell": spmv_ell.launches,
             "spmv_ell_multi": spmv_ell_multi.launches,
+            "square": LAUNCHES_BY_FORM["square"],
+            "bf16": LAUNCHES_BY_FORM["bf16"],
+            "rectangular": LAUNCHES_BY_FORM["rectangular"],
             "plain_on_cuda": spmv_ell_plain.cuda_calls
             + spmv_ell_multi_plain.cuda_calls}

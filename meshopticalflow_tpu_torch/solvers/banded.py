@@ -1,0 +1,220 @@
+"""Blocked banded Cholesky factorization and panel solves, in torch.
+
+Port of meshopticalflow_tpu/solvers/banded.py, the exact coarse-1 solve of
+the multigrid cycle. The host layout (``BandPattern``, ``build_band_pattern``)
+is a jax-free copy (tests/test_torch_host.py pins its source). The device
+half replaces the reference's ``lax.scan``s with Python loops whose bodies
+are the same few batched tensor ops as the scan bodies:
+
+    band_revalue        ELL values -> (m, nb+bw, nb) lower band blocks
+    band_cholesky       right-looking banded Cholesky over the m block steps
+    build_solve_panels  reblock into S = k*nb panels with inverted diagonals
+    panel_lower_solve   L y = rhs, one dense step per panel
+    panel_upper_solve   L^T x = y, reverse
+
+They run in the dtype of the values they are given: float32 on the float32
+path (the reference's only precision), float64 on the float64 path, which
+the card runs natively. The loops are latency-bound sequences of small
+kernels; a hand kernel waits until the H100 record shows that they carry
+the time (PERF.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from meshopticalflow_tpu_torch.ops.bsr import rcm_permutation
+
+
+# ----------------------------------------------------------------------------
+# Host-side layout (static per sparsity pattern)
+# ----------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class BandPattern:
+    """Static banded layout for one sparsity pattern."""
+
+    perm: np.ndarray        # (n,) RCM permutation (new -> old)
+    inv_perm: np.ndarray    # (n,) old -> new
+    n: int
+    nb: int                 # block size
+    bw: int                 # padded semiband (multiple of nb)
+    m: int                  # number of block steps = ceil(n / nb)
+    slots: np.ndarray       # (nnz_ell,) int64 flat slot into (m, nb+bw, nb),
+    #                         or the dump slot for upper-triangle duplicates
+
+
+def build_band_pattern(ell_cols: np.ndarray, nb: int = 128,
+                       bw_pad: Optional[int] = None) -> BandPattern:
+    """RCM-order the pattern and precompute the ELL-entry -> band-slot map.
+
+    Every ELL entry (r, c) with inv_perm[c] <= inv_perm[r] lands in the
+    lower band storage of step i = inv_perm[c] // nb at (inv_perm[r] - i*nb,
+    inv_perm[c] - i*nb); strict-upper entries map to a dump slot (the
+    factorization symmetrizes the diagonal block from the lower triangle).
+    """
+    cols = np.asarray(ell_cols)
+    n, w = cols.shape
+    rows = np.repeat(np.arange(n, dtype=np.int64), w)
+    pattern = sp.csr_matrix((np.ones(n * w, np.float32),
+                             (rows, cols.astype(np.int64).ravel())),
+                            shape=(n, n))
+    perm = np.asarray(rcm_permutation(pattern), np.int64)
+    inv_perm = np.empty(n, np.int64)
+    inv_perm[perm] = np.arange(n)
+    pr = inv_perm[rows]
+    pc = inv_perm[cols.astype(np.int64).ravel()]
+    semiband = int(np.max(np.abs(pr - pc))) if n else 0
+    bw = max(int(-(-semiband // nb)) * nb, nb)
+    if bw_pad is not None:
+        bw = max(bw, bw_pad)
+    m = -(-n // nb)
+    step = pc // nb
+    lower = pr >= pc
+    r_off = pr - step * nb
+    c_off = pc - step * nb
+    slot = step * (nb + bw) * nb + r_off * nb + c_off
+    dump = m * (nb + bw) * nb  # one scratch slot past the end
+    slots = np.where(lower, slot, dump)
+    return BandPattern(perm=perm, inv_perm=inv_perm, n=n, nb=nb, bw=bw, m=m,
+                       slots=slots.astype(np.int64))
+
+
+# ----------------------------------------------------------------------------
+# Device side
+# ----------------------------------------------------------------------------
+
+def band_revalue(slots: torch.Tensor, ell_vals: torch.Tensor, m: int, nb: int,
+                 bw: int, n: int = -1) -> torch.Tensor:
+    """Scatter padded-ELL values into the (m, nb+bw, nb) band blocks.
+
+    Rows beyond ``n`` (block padding when n % nb != 0) get a UNIT diagonal:
+    decoupled identity equations, so the zero-shift Cholesky succeeds there.
+    Only zero-valued ELL padding slots share a band slot with a real entry,
+    so the scatter-add is exact in any order."""
+    dtype, device = ell_vals.dtype, ell_vals.device
+    flat = torch.zeros(m * (nb + bw) * nb + 1, dtype=dtype, device=device)
+    flat.index_add_(0, slots, ell_vals.reshape(-1))
+    blocks = flat[:-1].reshape(m, nb + bw, nb)
+    if n >= 0 and m * nb > n:
+        rows = (torch.arange(m, device=device)[:, None] * nb
+                + torch.arange(nb, device=device)[None, :]) >= n
+        eye = torch.eye(nb, dtype=dtype, device=device)
+        blocks[:, :nb, :] += rows[:, None, :].to(dtype) * eye[None]
+    return blocks
+
+
+def band_cholesky(s_blocks: torch.Tensor, shift, nb: int, bw: int):
+    """Blocked banded Cholesky; returns (l_blocks (m, nb+bw, nb), ok flag as
+    a device bool tensor, so the caller decides when to read it).
+
+    ``shift`` is ADDED to the diagonal (absolute). A breakdown (a window
+    that is not positive definite) surfaces as ok=False; its blocks are
+    replaced by finite stand-ins (identity, zero) so the sweep finishes."""
+    dtype, device = s_blocks.dtype, s_blocks.device
+    m = s_blocks.shape[0]
+    eye = torch.eye(nb, dtype=dtype, device=device)
+    w = torch.zeros((nb + bw, nb + bw), dtype=dtype, device=device)
+    out = torch.empty((m, nb + bw, nb), dtype=dtype, device=device)
+    bad_any = torch.zeros((), dtype=torch.bool, device=device)
+    for i in range(m):
+        s_i = s_blocks[i]
+        d_low = torch.tril(s_i[:nb])
+        d = d_low + d_low.T - torch.diag(torch.diagonal(d_low)) + w[:nb, :nb] \
+            + shift * eye
+        ld, info = torch.linalg.cholesky_ex(d)
+        p = s_i[nb:] + w[nb:, :nb]
+        lp = torch.linalg.solve_triangular(ld.T, p, upper=True, left=False)
+        bad = (info != 0) | ~torch.isfinite(ld).all()
+        ld = torch.where(bad, eye, ld)
+        lp = torch.where(bad, torch.zeros((), dtype=dtype, device=device), lp)
+        bad_any |= bad
+        w_next = torch.zeros_like(w)
+        w_next[:bw, :bw] = w[nb:, nb:] - lp @ lp.T
+        w = w_next
+        out[i, :nb] = ld
+        out[i, nb:] = lp
+    return out, ~bad_any
+
+
+def build_solve_panels(l_blocks: torch.Tensor, k: int):
+    """Reblock an (m, nb+bw, nb) Cholesky factor into solve panels.
+
+    Returns (dinv (mp, S, S), pbelow (mp, bw, S)) with S = k*nb and
+    mp = ceil(m/k): dinv is the INVERSE of the lower-triangular S x S
+    diagonal panel, pbelow the band below it. Requires S <= bw."""
+    m, nbbw, nb = l_blocks.shape
+    bw = nbbw - nb
+    s = k * nb
+    if s > bw:
+        raise ValueError(f"panel width {s} exceeds band width {bw}")
+    dtype, device = l_blocks.dtype, l_blocks.device
+    mp = -(-m // k)
+    if mp * k > m:
+        eye_blk = torch.zeros((mp * k - m, nbbw, nb), dtype=dtype, device=device)
+        eye_blk[:, :nb, :] = torch.eye(nb, dtype=dtype, device=device)
+        l_blocks = torch.cat([l_blocks, eye_blk], dim=0)
+    lb = l_blocks.reshape(mp, k, nbbw, nb)
+    panel = torch.zeros((mp, s + bw, k, nb), dtype=dtype, device=device)
+    for t in range(k):
+        panel[:, t * nb: t * nb + nbbw, t, :] = lb[:, t]
+    panel = panel.reshape(mp, s + bw, s)
+    eye = torch.eye(s, dtype=dtype, device=device).expand(mp, s, s)
+    dinv = torch.linalg.solve_triangular(panel[:, :s, :], eye, upper=False)
+    return dinv, panel[:, s:, :].contiguous()
+
+
+def panel_lower_solve(dinv: torch.Tensor, pbelow: torch.Tensor,
+                      rhs_panels: torch.Tensor) -> torch.Tensor:
+    """y from L y = rhs on the panel layout; rhs_panels (mp, S, c)."""
+    mp, s, _ = dinv.shape
+    bw = pbelow.shape[1]
+    c = rhs_panels.shape[-1]
+    y = torch.empty_like(rhs_panels)
+    acc = torch.zeros((bw, c), dtype=rhs_panels.dtype, device=rhs_panels.device)
+    for i in range(mp):
+        torch.matmul(dinv[i], rhs_panels[i] - acc[:s], out=y[i])
+        if bw == s:
+            acc = pbelow[i] @ y[i]
+        else:
+            acc = torch.cat([acc[s:], torch.zeros_like(acc[:s])], dim=0) \
+                + pbelow[i] @ y[i]
+    return y
+
+
+def panel_upper_solve(dinv: torch.Tensor, pbelow: torch.Tensor,
+                      y_panels: torch.Tensor) -> torch.Tensor:
+    """x from L^T x = y (reverse sweep) on the panel layout."""
+    mp, s, _ = dinv.shape
+    bw = pbelow.shape[1]
+    c = y_panels.shape[-1]
+    x = torch.empty_like(y_panels)
+    xwin = torch.zeros((bw, c), dtype=y_panels.dtype, device=y_panels.device)
+    for i in range(mp - 1, -1, -1):
+        t = y_panels[i] - pbelow[i].T @ xwin
+        torch.matmul(dinv[i].T, t, out=x[i])
+        xwin = x[i] if bw == s else torch.cat([x[i], xwin[: bw - s]], dim=0)
+    return x
+
+
+def band_solve_panels(dinv: torch.Tensor, pbelow: torch.Tensor,
+                      perm: torch.Tensor, inv_perm: torch.Tensor,
+                      b: torch.Tensor, n: int) -> torch.Tensor:
+    """x = A^{-1} b through the panelized factorization (b (n,) or (n, c))."""
+    squeeze = b.dim() == 1
+    bc = b[:, None] if squeeze else b
+    c = bc.shape[1]
+    mp, s, _ = dinv.shape
+    bp = bc.to(dinv.dtype)[perm]
+    pad = mp * s - n
+    if pad:
+        bp = torch.cat([bp, torch.zeros((pad, c), dtype=bp.dtype, device=bp.device)])
+    y = panel_lower_solve(dinv, pbelow, bp.reshape(mp, s, c))
+    x = panel_upper_solve(dinv, pbelow, y)
+    out = x.reshape(mp * s, c)[:n][inv_perm].to(b.dtype)
+    return out[:, 0] if squeeze else out

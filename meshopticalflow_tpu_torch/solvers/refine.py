@@ -1,7 +1,9 @@
 """Iterative refinement for the level flow solves.
 
-Port of ``ell_solve_refined`` (meshopticalflow_tpu/solvers/refine.py:319),
-with the round and stop rules of its float64 host path:
+Ports of ``refine_loop`` (meshopticalflow_tpu/solvers/refine.py:59), the
+adaptive loop around the multigrid solver, and ``ell_solve_refined`` (:319),
+the Jacobi-PCG form, both with the round and stop rules of the reference's
+float64 host path:
 
     x = 0 (float64)
     repeat: r = b - A x (float64) ; stop at rel < max(tol, 1e-11) or when
@@ -23,21 +25,17 @@ from meshopticalflow_tpu_torch.ops.ell import ell_matvec
 from meshopticalflow_tpu_torch.solvers.cg import CGStats, ell_pcg
 
 
-def ell_solve_refined(
-    cols: torch.Tensor,
-    vals: torch.Tensor,       # (N, W) system values in the working dtype
-    diag: torch.Tensor,
-    b: torch.Tensor,          # (N,)
-    tol: float = 1e-12,
-    max_rounds: int = 6,
-    inner_tol: float = 1e-6,
-    inner_iters: int = 2000,
-    chunk: int = 128,
-    x0: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, CGStats]:
-    """Solve A x = b to float64 residual accuracy. Returns (x in b's dtype,
-    stats with the total inner iterations and the best float64 relative
-    residual)."""
+def refine_loop(cols: torch.Tensor, vals: torch.Tensor, b: torch.Tensor,
+                inner_solve, tol: float = 1e-12, max_rounds: int = 5,
+                inner_floor: float = 1e-6, x0: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, CGStats]:
+    """Iterative refinement around an arbitrary inner solver.
+
+    ``inner_solve(r, inner_tol, r_norm2) -> (e, CGStats)`` approximately
+    solves A e = r to relative tolerance ``inner_tol`` (``r_norm2`` is None:
+    the inner solver computes its own norm). The per-round inner tolerance
+    adapts: round k only needs to close the remaining gap (tol / rel), with
+    ``inner_floor`` below and 0.5 above."""
     vals64 = vals.to(torch.float64)
     b64 = b.to(torch.float64)
 
@@ -54,7 +52,7 @@ def ell_solve_refined(
                 and float(torch.linalg.vector_norm(residual(x_cand))) < b_norm):
             x = x_cand
     total_iters = 0
-    best_x, best_rel = x, 1.0
+    best_x, best_rel = x, math.inf
     prev_rel = math.inf
     for _ in range(max_rounds):
         r = residual(x)
@@ -70,12 +68,35 @@ def ell_solve_refined(
         # Scale the residual toward O(1) so a low-precision inner solve keeps
         # significance even when the outer residual is ~1e-10.
         scale = float(torch.max(torch.abs(r))) or 1.0
-        e, stats = ell_pcg(cols, vals, diag, (r / scale).to(b.dtype),
-                           tol=inner_tol, max_iters=inner_iters, chunk=chunk)
-        total_iters += stats.iterations
+        inner_tol = min(max(tol / rel, inner_floor), 0.5)
+        e, stats = inner_solve((r / scale).to(b.dtype), inner_tol, None)
+        total_iters += int(stats.iterations)
         x = x + e.to(torch.float64) * scale
     else:
         rel = float(torch.linalg.vector_norm(residual(x))) / b_norm
         if rel < best_rel:
             best_x, best_rel = x, rel
-    return best_x.to(b.dtype), CGStats(total_iters, best_rel)
+    return best_x.to(b.dtype), CGStats(total_iters, min(best_rel, 1e30))
+
+
+def ell_solve_refined(
+    cols: torch.Tensor,
+    vals: torch.Tensor,       # (N, W) system values in the working dtype
+    diag: torch.Tensor,
+    b: torch.Tensor,          # (N,)
+    tol: float = 1e-12,
+    max_rounds: int = 6,
+    inner_tol: float = 1e-6,
+    inner_iters: int = 2000,
+    chunk: int = 128,
+    x0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, CGStats]:
+    """Solve A x = b to float64 residual accuracy. Returns (x in b's dtype,
+    stats with the total inner iterations and the best float64 relative
+    residual). The refinement loop with a Jacobi-PCG inner solve at the
+    fixed tolerance ``inner_tol``."""
+    def inner(r, _tol, _r_norm2):
+        return ell_pcg(cols, vals, diag, r, tol=inner_tol, max_iters=inner_iters,
+                       chunk=chunk)
+
+    return refine_loop(cols, vals, b, inner, tol=tol, max_rounds=max_rounds, x0=x0)

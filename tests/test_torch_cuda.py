@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from meshopticalflow_tpu_torch.kernels import spmv
+from meshopticalflow_tpu_torch.kernels import probes, spmv
 
 # max |kernel - plain| / max |plain|: the two sum the W slots in another
 # order (and the kernel fuses multiply-adds).
@@ -59,3 +59,38 @@ def test_cuda_wrapper_refuses_mixed_devices():
     cols, vals, x = _operands(64, 3, 0, torch.float32)
     with pytest.raises(ValueError):
         spmv.spmv_ell(cols, vals, x.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("n_out,n_in,w,c", [(589824, 36864, 3, 0), (36864, 589824, 40, 0),
+                                            (196610, 12290, 3, 6), (12290, 196610, 30, 6)])
+def test_cuda_rectangular_matches_plain(dtype, n_out, n_in, w, c):
+    """The MG transfers P0 (fine <- coarse) and P0^T at the main path's sizes."""
+    _require_card()
+    rng = np.random.default_rng(n_out + w)
+    dev = torch.device("cuda")
+    cols = torch.from_numpy(rng.integers(0, n_in, (n_out, w))).to(torch.int32).to(dev)
+    spmv.check_columns(cols, n_in)
+    vals = torch.from_numpy(rng.standard_normal((n_out, w))).to(dtype).to(dev)
+    x_dtype = torch.float64 if dtype == torch.float64 else torch.float32
+    x = torch.from_numpy(rng.standard_normal((n_in, c) if c else n_in)).to(x_dtype).to(dev)
+    fn, plain = ((spmv.spmv_ell_multi, spmv.spmv_ell_multi_plain) if c
+                 else (spmv.spmv_ell, spmv.spmv_ell_plain))
+    y = fn(cols, vals, x)
+    torch.cuda.synchronize()
+    assert y.shape == ((n_out, c) if c else (n_out,))
+    ref = plain(cols, vals, x)
+    err = float((y - ref).abs().max() / ref.abs().max())
+    assert err <= KERNEL_TOL[dtype], err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [p[0] for p in probes.PROBES])
+def test_cuda_probe_matches_plain_and_script(name):
+    _require_card()
+    _, _, kernel, builder = next(p for p in probes.PROBES if p[0] == name)
+    before = kernel.launches
+    res = probes.run_probe(kernel, builder, torch.device("cuda"))
+    assert kernel.launches == before + 1
+    assert res["correct"] and res["matches_plain"], res

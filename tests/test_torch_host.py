@@ -184,14 +184,110 @@ def test_config_matches_reference_fields():
     dict(divergence_free=True), dict(connection_mode=1),
 ])
 def test_config_refuses_unported_paths(kwargs):
-    cfg = t_config.FlowConfig(**kwargs)     # default use_multigrid=True
+    """The defaults (multigrid on, as the CLI runs them) and use_multigrid=False
+    are accepted; every path the port lacks is refused with either."""
+    for mg_on in (True, False):
+        cfg = t_config.FlowConfig(use_multigrid=mg_on, **kwargs)
+        if kwargs:
+            with pytest.raises(NotImplementedError):
+                t_config.require_supported(cfg)
+        else:
+            t_config.require_supported(cfg)
+
+
+@pytest.mark.parametrize("kwargs", [dict(mg_c1_bf16=True), dict(flow_mg_levels=2)])
+def test_config_refuses_unported_multigrid_options(kwargs):
     with pytest.raises(NotImplementedError):
-        t_config.require_supported(cfg)
-    if kwargs:
-        with pytest.raises(NotImplementedError):
-            t_config.require_supported(t_config.FlowConfig(use_multigrid=False, **kwargs))
-    else:
-        t_config.require_supported(t_config.FlowConfig(use_multigrid=False))
+        t_config.require_supported(t_config.FlowConfig(**kwargs))
+    t_config.require_supported(t_config.FlowConfig(use_multigrid=False, **kwargs))
+
+
+# -- multigrid hierarchy host code -------------------------------------------
+
+def _cube006():
+    return _cube(0.06)
+
+
+@pytest.fixture(scope="module", params=["cube006", "sphere"])
+def hierarchy(request):
+    """Both packages' coarse spaces and patch levels on the 0.06 cube and the
+    small sphere, in float64."""
+    from meshopticalflow_tpu.models import coarse as j_coarse
+    from meshopticalflow_tpu_torch.models import coarse as t_coarse
+
+    tris0, verts0, uvs0, edge = {"cube006": _cube006, "sphere": _sphere}[request.param]()
+    tris, verts, _, parent, bary = t_subdiv.subdivide_tracked(tris0, verts0, uvs0, edge)
+    cfg_j = JaxFlowConfig(dtype="float64")
+    cfg_t = t_config.FlowConfig(dtype="float64")
+    out = {}
+    for tag, mesh_mod, whit, coarse, cfg in (
+            ("j", j_mesh, j_whitney, j_coarse, cfg_j),
+            ("t", t_mesh, t_whitney, t_coarse, cfg_t)):
+        fine = mesh_mod.build_mesh(tris, vertices=verts)
+        root = mesh_mod.build_mesh(tris0, vertices=verts0)
+        host = whit.build_whitney_basis(fine)
+        cs = coarse.build_coarse_space(cfg, fine, host, root, parent, bary)
+        vc = coarse.build_vertex_coarse(cfg, fine, root, parent, bary)
+        pl, patch_ids = coarse.build_patch_level(cfg, root, cs)
+        vp = coarse.build_vertex_patch_level_from(cfg, vc.m0_csr, vc.k0_csr, root,
+                                                  patch_ids)
+        out[tag] = dict(cs=cs, vc=vc, pl=pl, vp=vp, patch_ids=patch_ids)
+    return out
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _assert_values(a, b):
+    """Equal values; integer index arrays may differ in width (int32/int64)."""
+    a, b = _np(a), _np(b)
+    assert a.shape == b.shape
+    np.testing.assert_array_equal(a, b.astype(a.dtype))
+
+
+def test_coarse_space_host_copy(hierarchy):
+    j, t = hierarchy["j"]["cs"], hierarchy["t"]["cs"]
+    _assert_same((j.p0, j.p0_idx, j.p0_wt), (t.p0, t.p0_idx, t.p0_wt))
+    _assert_same((j.coarse_host.p_idx, j.coarse_host.p_wt, j.coarse_host.smooth),
+                 (t.coarse_host.p_idx, t.coarse_host.p_wt, t.coarse_host.smooth))
+    assert (j.coarse_host.name, j.coarse_host.n_coeffs) == \
+        (t.coarse_host.name, t.coarse_host.n_coeffs)
+    for field in ("ell_cols", "s_vals", "diag_slot", "dt_slots"):
+        _assert_values(getattr(j.coarse_dev, field), getattr(t.coarse_dev, field))
+
+
+def test_vertex_coarse_host_copy(hierarchy):
+    j, t = hierarchy["j"]["vc"], hierarchy["t"]["vc"]
+    for field in ("cols0", "m0_vals", "k0_vals", "p0_idx", "p0_wt"):
+        _assert_values(getattr(j, field), getattr(t, field))
+    _assert_same((j.m0_csr, j.k0_csr), (t.m0_csr, t.k0_csr))
+
+
+def test_patch_levels_host_copy(hierarchy):
+    j, t = hierarchy["j"], hierarchy["t"]
+    _assert_same(j["patch_ids"], t["patch_ids"])
+    for field in ("q2_idx", "q2_wt", "s2_dense", "p12_idx", "p12_wt"):
+        _assert_values(getattr(j["pl"], field), getattr(t["pl"], field))
+    for field in ("m2_dense", "k2_dense", "p12_idx", "p12_wt"):
+        _assert_values(getattr(j["vp"], field), getattr(t["vp"], field))
+
+
+def test_band_pattern_and_rcm_host_copies(hierarchy):
+    from meshopticalflow_tpu.ops import bsr as j_bsr
+    from meshopticalflow_tpu.solvers import banded as j_banded
+    from meshopticalflow_tpu_torch.ops import bsr as t_bsr
+    from meshopticalflow_tpu_torch.solvers import banded as t_banded
+
+    cols = np.asarray(hierarchy["j"]["cs"].coarse_dev.ell_cols)
+    n, w = cols.shape
+    pattern = sp.csr_matrix((np.ones(n * w), (np.repeat(np.arange(n), w), cols.ravel())),
+                            shape=(n, n))
+    _assert_same(j_bsr.rcm_permutation(pattern), t_bsr.rcm_permutation(pattern))
+    for nb in (32, 128):
+        a, b = j_banded.build_band_pattern(cols, nb=nb), t_banded.build_band_pattern(cols, nb=nb)
+        _assert_same((a.perm, a.inv_perm, a.slots), (b.perm, b.inv_perm, b.slots))
+        assert (a.n, a.nb, a.bw, a.m) == (b.n, b.nb, b.bw, b.m)
 
 
 # -- PNG reader --------------------------------------------------------------
@@ -283,6 +379,13 @@ HOST_COPIES = {
     "flow.signal": (("make_smoothing_operators",), "0c929c8905ae3dd2"),
     "flow.pipeline": (("_host_sample_texture", "sample_texture_to_vertices"),
                       "56aa701ba05c4175"),
+    "models.coarse": (("CoarseSpace", "_hat", "build_coarse_space", "VertexCoarse",
+                       "build_vertex_coarse", "PatchLevel", "VertexPatchLevel",
+                       "_csr_to_padded", "build_patch_level",
+                       "build_vertex_patch_level_from"), "da97641c72ccee20"),
+    "models.patches": (None, "6602617acf94526e"),
+    "ops.bsr": (("rcm_permutation",), "af0236d777da6e88"),
+    "solvers.banded": (("BandPattern", "build_band_pattern"), "fe2adb6fcbfcf9c0"),
 }
 
 

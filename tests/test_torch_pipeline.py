@@ -4,12 +4,20 @@
   meshopticalflow_tpu_torch.convert) against the reference level step.
 * Ten levels of both packages on the 256^2 cube with use_multigrid=False:
   equal flow and smoothing iteration counts, alignment errors within 1e-9.
-* The port's CLI on the CPU in float64 against the three reference-binary
-  goldens of tests/test_golden.py, at that file's thresholds.
-* The port imports neither jax nor flax.
+* The CLI's default multigrid configuration on the 256^2 cube in float64
+  against the JAX package's own multigrid run (its XLA backend on the CPU:
+  another cycle, so results and not iteration counts are compared),
+  alignment errors per level within 1e-6 relative; and the first levels of
+  the float32 run at 24,576 triangles and 512^2.
+* The port's CLI (multigrid by default) on the CPU in float64 against the
+  three reference-binary goldens of tests/test_golden.py, at that file's
+  thresholds.
+* The port imports neither jax nor flax, and no source of the port or of
+  chip_smoke.py names them in an import.
 """
 
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -57,7 +65,7 @@ def _sphere_problems(levels):
     jp = j_pipeline.FlowProblem(cfg_j, j_build_mesh(tris, vertices=verts), sig,
                                 vertices=verts, vertex_colors=sig)
     tp = t_pipeline.FlowProblem(cfg_t, t_build_mesh(tris, vertices=verts), sig,
-                                vertices=verts, vertex_colors=sig)
+                                vertices=verts, vertex_colors=sig, device="cpu")
     return jp, tp
 
 
@@ -106,7 +114,7 @@ def cube256():
     jp = j_pipeline.FlowProblem.from_texture_inputs(os.path.join(GOLD, "cube.ply"),
                                                     paths, cfg_j)
     tp = t_pipeline.FlowProblem.from_texture_inputs(os.path.join(GOLD, "cube.ply"),
-                                                    paths, cfg_t)
+                                                    paths, cfg_t, device="cpu")
     return jp, jp.run(), tp, tp.run()
 
 
@@ -175,10 +183,57 @@ def test_cli_cuda_without_gpu_raises(tmp_path, monkeypatch):
 
 
 def test_port_refuses_multigrid_config():
+    """The multigrid options the port lacks are refused at construction."""
     tris, verts, s0, s1 = sphere_signal_pair(2)
-    with pytest.raises(NotImplementedError):
-        t_pipeline.FlowProblem(FlowConfig(), t_build_mesh(tris, vertices=verts),
-                               np.stack([s0, s1]))
+    for cfg in (FlowConfig(mg_c1_bf16=True), FlowConfig(flow_mg_levels=2)):
+        with pytest.raises(NotImplementedError):
+            t_pipeline.FlowProblem(cfg, t_build_mesh(tris, vertices=verts),
+                                   np.stack([s0, s1]), device="cpu")
+
+
+def _mg_problems(dtype, edge, levels, paths):
+    kw = dict(dtype=dtype, subdivide_edge_length=edge, levels=levels)
+    mesh = os.path.join(GOLD, "cube.ply")
+    jp = j_pipeline.FlowProblem.from_texture_inputs(
+        mesh, paths, JaxFlowConfig(artifact_cache=False, **kw))
+    tp = t_pipeline.FlowProblem.from_texture_inputs(mesh, paths, FlowConfig(**kw),
+                                                    device="cpu")
+    return jp, jp.run(), tp, tp.run()
+
+
+def test_multigrid_default_matches_reference_f64():
+    """The CLI default (use_multigrid=True) on the 0.06 cube, 256^2, float64."""
+    paths = (os.path.join(GOLD, "mA.png"), os.path.join(GOLD, "mB.png"))
+    jp, ref, tp, ours = _mg_problems("float64", 0.06, 10, paths)
+    assert tp.hier is not None and tp.hier.patch.mg_pack.n1 > 0
+    assert len(ours.metrics) == len(ref.metrics) == 10
+    for m_t, m_j in zip(ours.metrics, ref.metrics):
+        assert _rel(m_t["alignment_error"], m_j["alignment_error"]) <= 1e-6, m_t["level"]
+        assert m_t["flow_res"] <= 10 * tp.config.flow_refine_tol
+        assert m_t["flow_gb_per_iter"] > 0 and m_t["smooth_gb_per_iter"] > 0
+    assert _rel(ours.tfield, ref.tfield) <= 1e-5
+    for key in ("coarse_space", "mg_pack_flow", "c1_band_flow", "mg_pack_smooth"):
+        assert key in tp.init_profile
+
+
+def test_multigrid_default_f32_at_24k_triangles(tmp_path):
+    """float32 at 24,576 triangles with the textures upsampled to 512^2, the
+    first two levels: both packages' alignment errors within 1e-5."""
+    from meshopticalflow_tpu_torch.io.png import write_png_rgb
+
+    paths = []
+    for name in ("mA.png", "mB.png"):
+        img = read_png_rgb(os.path.join(GOLD, name))
+        path = str(tmp_path / name)
+        write_png_rgb(path, np.repeat(np.repeat(img, 2, axis=0), 2, axis=1))
+        paths.append(path)
+    jp, ref, tp, ours = _mg_problems("float32", 0.024, 2, tuple(paths))
+    assert tp.mesh.n_triangles == 24576
+    errs = [(m_t["alignment_error"], m_j["alignment_error"])
+            for m_t, m_j in zip(ours.metrics, ref.metrics)]
+    print("alignment errors (port, reference):", errs)
+    for a, b in errs:
+        assert _rel(a, b) <= 1e-5
 
 
 def test_port_imports_no_jax():
@@ -195,3 +250,26 @@ def test_port_imports_no_jax():
                        text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.startswith("ok")
+
+
+_FOREIGN_IMPORT = re.compile(
+    r"^\s*(?:from|import)\s+(?:jax|jaxlib|flax|meshopticalflow_tpu)(?:[\s.,]|$)", re.M)
+
+
+def test_port_sources_import_no_jax():
+    """Every source of the port, and chip_smoke.py, scanned for an import of
+    jax, flax or the JAX package (lazy imports inside functions included)."""
+    pkg = os.path.join(REPO, "meshopticalflow_tpu_torch")
+    sources = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(pkg):
+        sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    assert len(sources) > 30
+    bad = {}
+    for path in sources:
+        with open(path) as f:
+            hits = _FOREIGN_IMPORT.findall(f.read())
+        if hits:
+            bad[os.path.relpath(path, REPO)] = hits
+    assert not bad, bad
+    assert _FOREIGN_IMPORT.search("    from meshopticalflow_tpu.ops import ell\n")
+    assert not _FOREIGN_IMPORT.search("from meshopticalflow_tpu_torch.ops import ell\n")

@@ -2,7 +2,8 @@
 
 The port's wrappers take their plain PyTorch versions on CPU tensors; those
 are held here against the Pallas kernels they replace (interpret mode,
-through pack_pattern / to_tiles / from_tiles) and against ell_matvec.
+through pack_pattern / to_tiles / from_tiles), square and rectangular, and
+against ell_matvec.
 The CUDA kernels themselves are held against the plain versions on the card
 by tests/test_torch_cuda.py.
 """
@@ -107,6 +108,59 @@ def test_f64_matches_reference_ell_matvec(c):
     np.testing.assert_allclose(y.numpy(), ref, rtol=1e-12, atol=1e-12)
 
 
+def _pallas_apply_rect(cols, vals, x, n_in, dtype=jnp.float32, seed=0):
+    """Rectangular y = A x through the Pallas kernel in interpret mode, with
+    independent row and column permutations (tests/test_pallas.py:40-54)."""
+    rng = np.random.default_rng(seed)
+    n_out = cols.shape[0]
+    row_perm, col_perm = rng.permutation(n_out), rng.permutation(n_in)
+    pat = pack_pattern(cols, row_perm, col_perm=col_perm, col_n=n_in)
+    op = PallasEll.from_ell_values(pat, jnp.asarray(pat.slots),
+                                   jnp.asarray(vals, jnp.float32), dtype=dtype,
+                                   interpret=True)
+    inv = jnp.asarray(np.argsort(row_perm), jnp.int32)
+    cp = jnp.asarray(col_perm, jnp.int32)
+    if x.ndim == 1:
+        y_t = op.apply(to_tiles(jnp.asarray(x, jnp.float32), cp, pat.col_nr))
+        return np.asarray(from_tiles(y_t, inv, n_out))
+    y_t = op.apply_multi(to_tiles_multi(jnp.asarray(x, jnp.float32), cp, pat.col_nr))
+    return np.asarray(from_tiles_multi(y_t, inv, n_out, x.shape[1]))
+
+
+@pytest.mark.parametrize("n_out,n_in,w,c", [(300, 150, 4, 0), (150, 300, 11, 0),
+                                            (300, 150, 4, 6), (150, 300, 11, 8)])
+@pytest.mark.parametrize("vdtype", ["float32", "bfloat16"])
+def test_rectangular_matches_pallas(n_out, n_in, w, c, vdtype):
+    """Rectangular operators (the MG transfers P0 (fine <- coarse) and P0^T)
+    through the single and multi-column wrappers, f32 and bf16 values."""
+    rng = np.random.default_rng(n_out + w + c)
+    cols = np.stack([rng.choice(n_in, w, replace=False) for _ in range(n_out)]).astype(np.int32)
+    vals = rng.standard_normal((n_out, w))
+    vt = _t(vals, torch.float32)
+    if vdtype == "bfloat16":
+        vt = vt.to(torch.bfloat16)
+        vals = vt.to(torch.float32).numpy()
+    x = rng.standard_normal((n_in, c) if c else n_in)
+    spmv.check_columns(cols, n_in)
+    fn = spmv.spmv_ell_multi if c else spmv.spmv_ell
+    y = fn(_t(cols, torch.int32), vt, _t(x, torch.float32))
+    assert y.shape == ((n_out, c) if c else (n_out,)) and y.dtype == torch.float32
+    ref = _pallas_apply_rect(cols, vals, x, n_in,
+                             dtype=jnp.bfloat16 if vdtype == "bfloat16" else jnp.float32)
+    np.testing.assert_allclose(y.numpy(), ref, **F32_TOL)
+
+
+def test_check_columns_refuses_out_of_range():
+    cols = np.array([[0, 3], [2, 1]], np.int32)
+    spmv.check_columns(cols, 4)
+    spmv.check_columns(torch.as_tensor(cols), 4)
+    for bad in (3, 2):
+        with pytest.raises(ValueError):
+            spmv.check_columns(cols, bad)
+    with pytest.raises(ValueError):
+        spmv.check_columns(-cols - 1, 4)
+
+
 def _operands():
     _, cols, vals = _random_ell(16, 3, seed=5)
     return (_t(cols, torch.int32), _t(vals, torch.float32),
@@ -138,7 +192,7 @@ def test_wrapper_rejects_bad_operands(case, exc):
     elif case == "vals_shape":
         vals = vals[:, :2].contiguous()
     elif case == "x_length":
-        x = x[:15]
+        x = x[:0]           # no rows at all for a non-empty operator
     elif case == "x_not_contiguous":
         fn = spmv.spmv_ell_multi
         x = torch.ones((2, 16), dtype=torch.float32).t()
