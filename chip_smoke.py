@@ -26,14 +26,19 @@ any failure raises, so the run exits non-zero and prints no final ok line.
   7. each SpMV kernel against its plain version at the operators of that
      problem (the f32 / bf16 / f64 flow and smoothing operators, the c1
      operator, the rectangular transfers P0 and P0^T of both hierarchies),
-     with warm and cold-L2 times, the byte bound (stored non-zeros only),
-     and cuSPARSE's time on the same operator; then the split of one
+     with its launch plan, warm and cold-L2 times, the warm time with the
+     scattered gather of x taken out (every slot of a row reading one x
+     element), the byte bound (stored non-zeros only), cuSPARSE's time on
+     the same operator, and the launches of its form (wrapper, value type,
+     square or rectangular, slab or lane-group variant) in the draws of
+     phases 5 and 6; then the split of one
      multigrid PCG iteration, each part timed alone (the sweeps' share of
      the levels is timed inside phase 6's run);
   8. the result lines.
 
 Every phase that drives a path (3, 5, 6) sets the launch counts to 0 just
-before it and reads them just after. The second-to-last line is a JSON record
+before it and reads them just after; phases 5 and 6 print and record the
+SpMV launches per form. The second-to-last line is a JSON record
 of the nine kernels; the last line is {"ok": true, "device": {...}}. Scratch
 files and the full records go to chiprun_out/chip_smoke/.
 """
@@ -194,6 +199,14 @@ def bound(nbytes: float, flops: float, dtype_name: str):
 
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def launches_where(counts: dict, kernel=None, dtype=None, shape=None, variant=None) -> int:
+    """SpMV launches of the forms that match (kernels/spmv.py:counts keys
+    its ``by_form`` entries "wrapper/type/square|rectangular/slab|group")."""
+    want = (kernel, dtype, shape, variant)
+    return sum(v for k, v in counts["by_form"].items()
+               if all(w is None or w == part for w, part in zip(want, k.split("/"))))
 
 
 # ----------------------------------------------------------------------------
@@ -371,7 +384,7 @@ def check_goldens(spmv):
         if counts["spmv_ell"] == 0 or counts["spmv_ell_multi"] == 0 or counts["plain_on_cuda"]:
             raise RuntimeError(f"golden run ({solver}) did not go through the kernels: "
                                f"{counts}")
-        if (counts["rectangular"] > 0) != (solver == "multigrid"):
+        if (launches_where(counts, shape="rectangular") > 0) != (solver == "multigrid"):
             raise RuntimeError(f"golden run ({solver}) took the wrong solver: {counts}")
     return out
 
@@ -511,7 +524,10 @@ def drive(spmv, mesh, paths, size, cfg, tag: str, n: int,
              f"{rec['e2e_texels_per_sec']:.1f} texels/s; peak {rec['peak_mem_gb']:.2f} GB")
     phase(n, "init profile " + json.dumps({k: round(v, 3)
                                            for k, v in prob.init_profile.items()}))
-    phase(n, f"launches {counts}")
+    phase(n, f"launches: spmv_ell {counts['spmv_ell']}, spmv_ell_multi "
+             f"{counts['spmv_ell_multi']}, plain on CUDA {counts['plain_on_cuda']}")
+    for form, k in counts["by_form"].items():
+        phase(n, f"launches of {form}: {k}")
     if "mg" in rec:
         phase(n, f"hierarchy {json.dumps(rec['mg'])}")
     metrics = [v for m in rec["levels"] for k, v in m.items() if k != "level"]
@@ -539,7 +555,8 @@ def jacobi_path(spmv, paths, size, levels: int):
     counts = rec["launches"]
     if counts["spmv_ell"] == 0 or counts["spmv_ell_multi"] == 0:
         raise RuntimeError(f"jacobi: a kernel was not launched: {counts}")
-    if prob.hier is not None or counts["rectangular"] or counts["bf16"]:
+    if (prob.hier is not None or launches_where(counts, shape="rectangular")
+            or launches_where(counts, dtype="bf16")):
         raise RuntimeError(f"jacobi: the multigrid path ran: {counts}")
     return rec
 
@@ -565,9 +582,13 @@ def multigrid_path(spmv, root, paths, size):
              f"calls, {sweeps_s:.3f} s of the levels' {rec['levels_s']:.3f} s "
              f"({100 * rec['sweeps']['share_of_levels']:.1f} %)")
     counts = rec["launches"]
-    for form in ("square", "bf16", "rectangular", "spmv_ell_multi"):
-        if counts[form] == 0:
+    for form in (dict(kernel="spmv_ell", dtype="f32", shape="square"), dict(dtype="bf16"),
+                 dict(shape="rectangular"), dict(kernel="spmv_ell_multi"),
+                 dict(variant="slab"), dict(variant="group")):
+        if launches_where(counts, **form) == 0:
             raise RuntimeError(f"multigrid: no {form} launches on the main path: {counts}")
+    phase(6, "flow_iters per level " + ", ".join(f"{m['flow_iters']:.0f}"
+                                                  for m in rec["levels"]))
     if prob.hier is None:
         raise RuntimeError("multigrid: no hierarchy was built")
     worst = max(m["flow_res"] for m in rec["levels"])
@@ -642,8 +663,10 @@ def mg_operators(prob):
     ]
 
 
-def check_spmv(spmv, prob, l2_tb_s: float):
-    """Phase 7: every SpMV form against its plain version, timed."""
+def check_spmv(spmv, prob, l2_tb_s: float, draws: dict):
+    """Phase 7: every SpMV form against its plain version, timed, with its
+    form's launches in each draw of ``draws`` (tag -> record) and those
+    launches times (warm time - bound)."""
     import torch
 
     report = []
@@ -667,24 +690,45 @@ def check_spmv(spmv, prob, l2_tb_s: float):
         nbytes = nnz * (4 + vals.element_size()) + 4 * (cols.shape[0] + 1) + _nbytes(x, y)
         b_ms, b_by = bound(nbytes, 2 * nnz * (x.shape[1] if x.dim() == 2 else 1), tname)
         lib_ms, lib_note = _library_ms(cols, vals, x, n_in)
-        rec = dict(name=name, operator=op, dtype=tname, shape=list(cols.shape),
+        form = spmv.form_of(name, cols, vals, n_in)
+        plan = spmv.LIBRARY.load().plan(vals.dtype, cols.shape[0], cols.shape[1],
+                                        x.shape[1] if x.dim() == 2 else 1, x.device)
+        # the same kernel and stream with the scattered gather taken out:
+        # every slot of row i reads x[i * n_in // n_out]
+        n_out = cols.shape[0]
+        local = (torch.arange(n_out, device=cols.device, dtype=torch.int64) * n_in
+                 // n_out).to(torch.int32)[:, None].expand(cols.shape).contiguous()
+        rec = dict(name=name, operator=op, dtype=tname, shape=list(cols.shape), form=form,
+                   plan=dataclasses.asdict(plan),
                    x_shape=list(x.shape), nnz=nnz, max_abs_err=abs_err, rel_err=rel,
                    ms=median_ms(lambda: kernel(cols, vals, x)),
                    ms_cold=cold_ms(lambda: kernel(cols, vals, x)),
+                   ms_local_gather=median_ms(lambda: kernel(local, vals, x)),
                    issue_ms=issue_ms(lambda: kernel(cols, vals, x)),
                    plain_ms=median_ms(lambda: plain(cols, vals, x)),
                    bytes=nbytes, bound_ms=b_ms, bound_by=b_by,
                    bound_l2_ms=nbytes / (l2_tb_s * 1e12) * 1e3,
                    library_ms=lib_ms, library_note=lib_note)
+        for tag, draw in draws.items():
+            k = draw["launches"]["by_form"].get(form, 0)
+            rec[f"launches_{tag}"] = k
+            rec[f"excess_ms_{tag}"] = k * (rec["ms"] - b_ms)
         report.append(rec)
         lib = f"{lib_ms * 1e3:.2f} us" if lib_ms is not None else lib_note
-        phase(7, f"{name} {op} {tname} {tuple(cols.shape)} x{tuple(x.shape)}: "
+        layout = (f"R {plan.rows}, {plan.stages} stages" if plan.variant == "slab"
+                  else f"G {plan.group}")
+        phase(7, f"{name} {op} {tname} {tuple(cols.shape)} x{tuple(x.shape)} "
+                 f"({plan.variant}: {plan.threads} threads, {layout}, {plan.grid} CTAs): "
                  f"max|d|/max|y| {rel:.3e} (tol {KERNEL_TOL[tname]:.0e}); kernel "
                  f"{rec['ms'] * 1e3:.2f} us warm, {rec['ms_cold'] * 1e3:.2f} us cold, "
-                 f"{rec['issue_ms'] * 1e3:.2f} us issued back to back; "
+                 f"{rec['issue_ms'] * 1e3:.2f} us issued back to back, "
+                 f"{rec['ms_local_gather'] * 1e3:.2f} us warm with a local gather; "
                  f"plain {rec['plain_ms'] * 1e3:.2f} us; cuSPARSE {lib}; bound "
                  f"{b_ms * 1e3:.2f} us HBM, {rec['bound_l2_ms'] * 1e3:.2f} us L2 "
-                 f"({nbytes / 1e6:.1f} MB, {nnz} non-zeros in {cols.numel()} slots)")
+                 f"({nbytes / 1e6:.1f} MB, {nnz} non-zeros in {cols.numel()} slots); "
+                 + "; ".join(f"{form} launched {rec[f'launches_{t}']} times in the {t} draw, "
+                             f"x (warm - bound) = {rec[f'excess_ms_{t}']:.3f} ms"
+                             for t in draws))
         if not rel <= KERNEL_TOL[tname]:
             raise RuntimeError(f"{name} {op} {tname}: kernel disagrees with plain "
                                f"version ({rel:.3e} > {KERNEL_TOL[tname]:.0e})")
@@ -780,7 +824,8 @@ def main() -> int:
     phase(7, f"measured copy rates: HBM {rates['hbm_copy_tb_s']:.3f} TB/s (1 GB), "
              f"L2-resident {rates['l2_copy_tb_s']:.3f} TB/s (16 MB); published HBM "
              f"{HBM_TB_S} TB/s")
-    spmv_report = check_spmv(spmv, prob, rates["l2_copy_tb_s"])
+    spmv_report = check_spmv(spmv, prob, rates["l2_copy_tb_s"],
+                             {"multigrid": mg_rec, "jacobi": jacobi})
     split = iteration_split(prob)
     del prob
     torch.cuda.empty_cache()

@@ -17,7 +17,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -41,14 +41,15 @@ def nvcc() -> str:
 class CudaLibrary:
     """One nvcc-built shared library: its build, its load, its C signatures.
 
-    ``bind(lib)`` sets ``argtypes`` / ``restype`` of the loaded entry points.
+    ``bind(lib)`` sets ``argtypes`` / ``restype`` of the loaded entry points
+    and returns the handle that ``load()`` hands out.
     """
 
-    def __init__(self, stem: str, source: str, bind: Callable[[ctypes.CDLL], None]):
+    def __init__(self, stem: str, source: str, bind: Callable[[ctypes.CDLL], Any]):
         self.stem = stem
         self.source = CSRC / source
         self._bind = bind
-        self._lib: Optional[ctypes.CDLL] = None
+        self._lib: Any = None
         self._lock = threading.Lock()
 
     def path(self) -> Path:
@@ -87,12 +88,10 @@ class CudaLibrary:
             self.finish(pending)
         return self.path()
 
-    def load(self) -> ctypes.CDLL:
+    def load(self):
         with self._lock:
             if self._lib is None:
-                lib = ctypes.CDLL(str(self.build()))
-                self._bind(lib)
-                self._lib = lib
+                self._lib = self._bind(ctypes.CDLL(str(self.build())))
         return self._lib
 
 
@@ -113,10 +112,12 @@ def build_all(libraries) -> Dict[str, Path]:
     return {lib.stem: lib.path() for lib in libraries}
 
 
-def stream_of(device) -> ctypes.c_void_p:
+def stream_of(device) -> int:
+    """The raw handle of the current CUDA stream of ``device``."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def raise_on(err: int, name: str) -> None:

@@ -31,7 +31,7 @@ import torch
 from meshopticalflow_tpu_torch.kernels.build import CudaLibrary, raise_on, stream_of
 
 
-def _bind(lib: ctypes.CDLL) -> None:
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     sigs = {"probe_scale": [p, p, i64, p],
             "probe_row_gather": [p, p, p, i64, i32, p],
@@ -44,6 +44,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = args
         fn.restype = i32
+    return lib
 
 
 LIBRARY = CudaLibrary("probes", "probes.cu", _bind)

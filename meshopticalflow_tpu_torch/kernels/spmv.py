@@ -1,7 +1,7 @@
 """Padded-ELL sparse matvecs: hand-written CUDA kernels and their plain twins.
 
-Two kernels (``csrc/spmv_ell.cu``) replace the reference package's Pallas
-kernels (meshopticalflow_tpu/kernels/pallas_spmv.py):
+Two wrappers over the kernels of ``csrc/spmv_ell.cu`` replace the reference
+package's Pallas kernels (meshopticalflow_tpu/kernels/pallas_spmv.py):
 
     spmv_ell(cols, vals, x)        y = A x         <- _spmv_kernel
     spmv_ell_multi(cols, vals, X)  Y = A X, C <= 8 <- _spmv_multi_kernel
@@ -16,14 +16,20 @@ checked once where an operator is built (``check_columns``), not per
 launch. Value types: float32 values with float32 x; bfloat16 values with
 float32 x (f32 accumulation, f32 result); float64 values with float64 x.
 
+``launch_plan`` picks the kernel variant from the row width W: up to
+``SLAB_MAX_WIDTH`` slots a row, persistent CTAs stream slabs of R rows
+through a ring of TMA bulk copies; wider rows get a group of G lanes each.
+The slab copies need 16-byte aligned ``cols`` and ``vals``; the wrapper
+raises on a misaligned operand rather than take another path.
+
 A CUDA tensor always launches the kernel or raises. A CPU tensor goes to the
 plain PyTorch version (``spmv_ell_plain`` / ``spmv_ell_multi_plain``, a
 gather plus a sum over W). Each wrapper counts its kernel launches in
 ``<wrapper>.launches``; each plain version counts the calls it gets with CUDA
 tensors in ``<plain>.cuda_calls`` (the wrappers never make such a call, so
-on the main path that count stays 0). The launches are also split by form
-in ``LAUNCHES_BY_FORM`` (square f32/f64, bf16, rectangular), which the smoke
-run reads to show that each form of the main path reached the card.
+on the main path that count stays 0). ``LAUNCHES_BY_FORM`` splits the
+launches by form (``form_of``: wrapper, value type, square or rectangular,
+variant).
 
 The kernels are compiled by nvcc at first use (kernels/build.py) and loaded
 with ctypes.
@@ -32,7 +38,9 @@ with ctypes.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from collections import Counter
+from typing import Callable
 
 import numpy as np
 import torch
@@ -40,24 +48,171 @@ import torch
 from meshopticalflow_tpu_torch.kernels.build import CudaLibrary, raise_on, stream_of
 
 MAX_MULTI_COLUMNS = 8
+SLAB_MAX_WIDTH = 16       # widest row the slab ring takes; wider rows use lane groups
+# The slab ring's shape: small CTAs and two stages, because shared memory per
+# CTA sets how many CTAs, and so how many rows and gathers, an SM holds.
+SLAB_THREADS = 128
+SLAB_STAGES = 2
+SLAB_MIN_BYTES = 8192     # a slab holds at least this much of cols and vals
+SLAB_MAX_PASSES = 4       # passes of a thread over one slab run one after another
+GROUP_THREADS = 256
+SMEM_PER_CTA = 227 * 1024
+SMS = 132                 # H100 SXM; the wrapper reads the card's own count
 
+# value dtype -> (tag of the C entry points, x / result dtype)
 _VALUE_TYPES = {torch.float32: ("f32", torch.float32),
                 torch.bfloat16: ("bf16", torch.float32),
                 torch.float64: ("f64", torch.float64)}
+_VARIANT_CODE = {"slab": 0, "group": 1}
 
 
-def _bind(lib: ctypes.CDLL) -> None:
-    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    for tag in ("f32", "bf16", "f64"):
-        fn = getattr(lib, f"spmv_ell_{tag}")
-        fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, ptr]
-        fn.restype = i32
-        fn = getattr(lib, f"spmv_ell_multi_{tag}")
-        fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
-        fn.restype = i32
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    variant: str      # "slab" (TMA-staged row slabs) or "group" (G lanes per row)
+    threads: int      # per CTA
+    rows: int         # R, rows per slab ("slab"); 0 for "group"
+    group: int        # G, lanes per row ("group"); 0 for "slab"
+    stages: int       # slabs in the shared-memory ring ("slab"); 0 for "group"
+    smem: int         # dynamic shared memory per CTA, bytes
+    grid: int         # CTAs
 
 
-LIBRARY = CudaLibrary("spmv_ell", "spmv_ell.cu", _bind)
+def row_lanes(c: int, elem_size: int) -> int:
+    """Lanes that share one row in the slab kernel, one vector of its C
+    columns each (csrc/spmv_ell.cu:RowVec::kLanes)."""
+    return c * elem_size // vector_bytes(c, elem_size)
+
+
+def slab_rows(w: int, c: int, value_size: int) -> int:
+    """R, rows per slab: whole passes of the CTA's lanes over the slab, each
+    a multiple of 8 rows (which keeps every slab's offset and size a
+    multiple of 16 bytes for every value type), enough passes for
+    SLAB_MIN_BYTES of cols and vals, at most SLAB_MAX_PASSES: a thread's
+    passes run one after another."""
+    per_pass = SLAB_THREADS // row_lanes(c, x_elem_size(value_size)) // 8 * 8
+    passes = SLAB_MIN_BYTES // (per_pass * w * (4 + value_size))
+    return per_pass * min(SLAB_MAX_PASSES, max(1, passes))
+
+
+def variant_of(w: int) -> str:
+    """The kernel variant for rows of W slots."""
+    return "slab" if 1 <= w <= SLAB_MAX_WIDTH else "group"
+
+
+def form_of(name: str, cols: torch.Tensor, vals: torch.Tensor, n_in: int) -> str:
+    """The key of a launch in ``LAUNCHES_BY_FORM``:
+    "wrapper/value type/square|rectangular/slab|group"."""
+    n, w = cols.shape
+    return "/".join((name, _VALUE_TYPES[vals.dtype][0],
+                     "rectangular" if n != n_in else "square", variant_of(w)))
+
+
+def lane_group(w: int, c: int) -> int:
+    """G lanes per row: enough that a lane's slots fit one chunk of gathers
+    (4 slots) for one column, or two chunks for C columns, whose C sums each
+    cost a shuffle per halving of G; 4 to 32."""
+    per_lane = 4 if c == 1 else 8
+    g = 4
+    while g < 32 and g * per_lane < w:
+        g *= 2
+    return g
+
+
+def launch_plan(n: int, w: int, c: int, value_size: int,
+                ctas_per_sm: Callable[[str, int, int], int] = lambda v, t, s: 1,
+                sms: int = SMS) -> LaunchPlan:
+    """The launch of one product: (n, W, C, value size) -> variant, R or G,
+    grid. ``ctas_per_sm(variant, threads, smem)`` is the occupancy the card
+    reports for that kernel (the wrapper asks the CUDA occupancy API once per
+    configuration). Both variants are persistent: the grid is the CTAs the
+    card holds at once, capped at the work."""
+    if not 1 <= c <= MAX_MULTI_COLUMNS:
+        raise ValueError(f"launch_plan: {c} columns, the kernels take 1..{MAX_MULTI_COLUMNS}")
+    if variant_of(w) == "slab":
+        rows = slab_rows(w, c, value_size)
+        stages = SLAB_STAGES
+        smem = stages * rows * w * (4 + value_size)
+        if smem > SMEM_PER_CTA:
+            raise ValueError(f"launch_plan: a {stages}-stage ring of {rows} rows x {w} "
+                             f"needs {smem} B of shared memory")
+        resident = max(1, ctas_per_sm("slab", SLAB_THREADS, smem)) * sms
+        grid = max(1, min(resident, -(-n // rows)))
+        return LaunchPlan("slab", SLAB_THREADS, rows, 0, stages, smem, grid)
+    g = lane_group(w, c)
+    resident = max(1, ctas_per_sm("group", GROUP_THREADS, 0)) * sms
+    grid = max(1, min(resident, -(-n * g // GROUP_THREADS)))
+    return LaunchPlan("group", GROUP_THREADS, 0, g, 0, 0, grid)
+
+
+def x_elem_size(value_size: int) -> int:
+    """Bytes of one element of x and y for values of ``value_size`` bytes
+    (bf16 and f32 values take f32 x)."""
+    return 8 if value_size == 8 else 4
+
+
+def vector_bytes(c: int, elem_size: int) -> int:
+    """Bytes of the vector access the kernels use for one C-wide row of x
+    and y (csrc/spmv_ell.cu:RowVec); x must be aligned to it."""
+    row = c * elem_size
+    return 16 if row % 16 == 0 else 8 if row % 8 == 0 else elem_size
+
+
+class _Kernels:
+    """The loaded library's entry points, bound once per value type, and
+    what each operator shape's launches need, worked out at its first launch
+    (per loaded library)."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        self.launch, self.occupancy = {}, {}
+        for dtype, (tag, _) in _VALUE_TYPES.items():
+            fn = getattr(lib, f"spmv_ell_{tag}")
+            fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, i32, i32, i32, i32, i32,
+                           i32, ptr]
+            fn.restype = i32
+            self.launch[dtype] = fn
+            occ = getattr(lib, f"spmv_ell_occupancy_{tag}")
+            occ.argtypes = [i32, i32, i32, i32, ctypes.POINTER(i32)]
+            occ.restype = i32
+            self.occupancy[dtype] = occ
+        self.entries: dict = {}
+        self.ctas: dict = {}
+
+    def ctas_per_sm(self, dtype, c: int, variant: str, threads: int, smem: int) -> int:
+        key = (dtype, c, variant, threads, smem)
+        if key not in self.ctas:
+            out = ctypes.c_int(0)
+            raise_on(self.occupancy[dtype](c, _VARIANT_CODE[variant], threads, smem,
+                                           ctypes.byref(out)), "spmv occupancy")
+            if out.value < 1:
+                raise RuntimeError(f"spmv: the card fits no CTA of {threads} threads "
+                                   f"and {smem} B of shared memory")
+            self.ctas[key] = out.value
+        return self.ctas[key]
+
+    def plan(self, dtype, n: int, w: int, c: int, device) -> LaunchPlan:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        return launch_plan(n, w, c, dtype.itemsize,
+                           lambda v, t, s: self.ctas_per_sm(dtype, c, v, t, s), sms)
+
+    def entry(self, name: str, cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
+              c: int) -> tuple:
+        """(entry point, the launch's size and plan arguments, form, x's
+        alignment) for this operator shape on x's device."""
+        n, w = cols.shape
+        key = (name, vals.dtype, n, w, c, x.shape[0], x.device.index)
+        hit = self.entries.get(key)
+        if hit is None:
+            plan = self.plan(vals.dtype, n, w, c, x.device)
+            hit = (self.launch[vals.dtype],
+                   (n, w, c, _VARIANT_CODE[plan.variant], plan.threads,
+                    plan.rows or plan.group, plan.stages, plan.smem, plan.grid),
+                   form_of(name, cols, vals, x.shape[0]), vector_bytes(c, x.element_size()))
+            self.entries[key] = hit
+        return hit
+
+
+LIBRARY = CudaLibrary("spmv_ell", "spmv_ell.cu", _Kernels)
 LAUNCHES_BY_FORM: Counter = Counter()
 
 
@@ -121,13 +276,25 @@ spmv_ell_plain.cuda_calls = 0
 spmv_ell_multi_plain.cuda_calls = 0
 
 
-def _count_form(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> None:
-    if cols.shape[0] != x.shape[0]:
-        LAUNCHES_BY_FORM["rectangular"] += 1
-    elif vals.dtype == torch.bfloat16:
-        LAUNCHES_BY_FORM["bf16"] += 1
+def _launch(name: str, cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
+            y: torch.Tensor, c: int) -> None:
+    """Launch the kernel for y = A x on x's device and stream; raises on a
+    misaligned operand or a refused launch."""
+    fn, sizes, form, x_align = LIBRARY.load().entry(name, cols, vals, x, c)
+    p_cols, p_vals, p_x = cols.data_ptr(), vals.data_ptr(), x.data_ptr()
+    if p_cols % 16 or p_vals % 16:
+        raise ValueError(f"{name}: cols and vals must be 16-byte aligned for the slab "
+                         f"copies (data_ptr % 16: {p_cols % 16}, {p_vals % 16})")
+    if p_x % x_align:
+        raise ValueError(f"{name}: x must be {x_align}-byte aligned for {c}-wide rows")
+    dev = x.device
+    if dev.index == torch.cuda.current_device():
+        err = fn(p_cols, p_vals, p_x, y.data_ptr(), *sizes, stream_of(dev))
     else:
-        LAUNCHES_BY_FORM["square"] += 1
+        with torch.cuda.device(dev):
+            err = fn(p_cols, p_vals, p_x, y.data_ptr(), *sizes, stream_of(dev))
+    raise_on(err, name)
+    LAUNCHES_BY_FORM[form] += 1
 
 
 def spmv_ell(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -135,15 +302,10 @@ def spmv_ell(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.T
     x_dtype = _check("spmv_ell", cols, vals, x, 1)
     if not x.is_cuda:
         return spmv_ell_plain(cols, vals, x)
-    n, w = cols.shape
-    y = torch.empty(n, dtype=x_dtype, device=x.device)
-    fn = getattr(LIBRARY.load(), f"spmv_ell_{_VALUE_TYPES[vals.dtype][0]}")
-    with torch.cuda.device(x.device):
-        err = fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(), y.data_ptr(),
-                 n, w, stream_of(x.device))
-    raise_on(err, "spmv_ell")
-    spmv_ell.launches += 1
-    _count_form(cols, vals, x)
+    y = torch.empty(cols.shape[0], dtype=x_dtype, device=x.device)
+    if y.numel():
+        _launch("spmv_ell", cols, vals, x, y, 1)
+        spmv_ell.launches += 1
     return y
 
 
@@ -156,15 +318,10 @@ def spmv_ell_multi(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> t
                          f"takes 1..{MAX_MULTI_COLUMNS}")
     if not x.is_cuda:
         return spmv_ell_multi_plain(cols, vals, x)
-    n, w = cols.shape
-    y = torch.empty((n, c), dtype=x_dtype, device=x.device)
-    fn = getattr(LIBRARY.load(), f"spmv_ell_multi_{_VALUE_TYPES[vals.dtype][0]}")
-    with torch.cuda.device(x.device):
-        err = fn(cols.data_ptr(), vals.data_ptr(), x.data_ptr(), y.data_ptr(),
-                 n, w, c, stream_of(x.device))
-    raise_on(err, "spmv_ell_multi")
-    spmv_ell_multi.launches += 1
-    _count_form(cols, vals, x)
+    y = torch.empty((cols.shape[0], c), dtype=x_dtype, device=x.device)
+    if y.numel():
+        _launch("spmv_ell_multi", cols, vals, x, y, c)
+        spmv_ell_multi.launches += 1
     return y
 
 
@@ -180,10 +337,10 @@ def reset_counts() -> None:
 
 
 def counts() -> dict:
+    """Launches per wrapper, per form ("wrapper/type/square|rectangular/
+    slab|group"), and plain-version calls on CUDA tensors."""
     return {"spmv_ell": spmv_ell.launches,
             "spmv_ell_multi": spmv_ell_multi.launches,
-            "square": LAUNCHES_BY_FORM["square"],
-            "bf16": LAUNCHES_BY_FORM["bf16"],
-            "rectangular": LAUNCHES_BY_FORM["rectangular"],
+            "by_form": dict(sorted(LAUNCHES_BY_FORM.items())),
             "plain_on_cuda": spmv_ell_plain.cuda_calls
             + spmv_ell_multi_plain.cuda_calls}

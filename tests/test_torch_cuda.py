@@ -23,12 +23,16 @@ def _require_card():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
 
 
-def _operands(n, w, c, dtype, seed=3):
+def _operands(n, w, c, dtype, seed=3, positive=False):
+    """A random operator near the diagonal; ``positive`` draws values and x
+    from |N(0, 1)|, so no output is a sum that cancels to near zero."""
     rng = np.random.default_rng(seed)
     cols = torch.from_numpy((np.arange(n)[:, None]
                              + rng.integers(-300, 300, (n, w))) % n).to(torch.int32)
     vals = torch.from_numpy(rng.standard_normal((n, w)))
     x = torch.from_numpy(rng.standard_normal((n, c) if c else n))
+    if positive:
+        vals, x = vals.abs(), x.abs()
     x_dtype = torch.float64 if dtype == torch.float64 else torch.float32
     dev = torch.device("cuda")
     return cols.to(dev), vals.to(dtype).to(dev), x.to(x_dtype).to(dev)
@@ -51,6 +55,72 @@ def test_cuda_kernel_matches_plain(dtype, n, w, c):
     ref = plain(cols, vals, x)
     err = float((y - ref).abs().max() / ref.abs().max())
     assert err <= KERNEL_TOL[dtype], err
+
+
+def _check_against_plain(cols, vals, x, c):
+    fn, plain = ((spmv.spmv_ell_multi, spmv.spmv_ell_multi_plain) if c
+                 else (spmv.spmv_ell, spmv.spmv_ell_plain))
+    before = fn.launches
+    y = fn(cols, vals, x)
+    torch.cuda.synchronize()
+    assert fn.launches == before + (1 if cols.shape[0] else 0)
+    assert y.dtype == x.dtype and y.shape == ((cols.shape[0], c) if c else (cols.shape[0],))
+    ref = plain(cols, vals, x)
+    if cols.shape[0]:
+        err = float((y - ref).abs().max() / ref.abs().max())
+        assert err <= KERNEL_TOL[vals.dtype], err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("w", [1, 3, 9, 13, 40, 49, 69])
+@pytest.mark.parametrize("c", range(0, 9))
+def test_cuda_widths_and_columns(dtype, w, c):
+    """Both variants (slab rows up to SLAB_MAX_WIDTH slots, lane groups past
+    it), single and 1..8 columns, bf16 with odd W, a ragged last slab."""
+    _require_card()
+    n = 3 * spmv.slab_rows(min(w, spmv.SLAB_MAX_WIDTH), max(c, 1), dtype.itemsize) + 5
+    _check_against_plain(*_operands(n, w, c, dtype, seed=w + c), c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("tail", ["1", "7", "R-1", "R+1", "132*8*R+1"])
+@pytest.mark.parametrize("w,c", [(9, 0), (3, 6)])
+def test_cuda_ragged_tails(dtype, tail, w, c):
+    """Row counts around the slab size R: below one slab (plain loads only),
+    one short of and one past a slab, and more slabs than the card holds
+    CTAs, plus one. Positive operands: a handful of rows must not make the
+    relative error a measure of cancellation."""
+    _require_card()
+    r = spmv.slab_rows(w, max(c, 1), dtype.itemsize)
+    n = {"1": 1, "7": 7, "R-1": r - 1, "R+1": r + 1, "132*8*R+1": 132 * 8 * r + 1}[tail]
+    _check_against_plain(*_operands(n, w, c, dtype, seed=n, positive=True), c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [0, 6])
+def test_cuda_no_rows(c):
+    _require_card()
+    cols, vals, x = _operands(64, 9, c, torch.float32)
+    _check_against_plain(cols[:0], vals[:0], x, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("operand", ["vals", "cols"])
+def test_cuda_misaligned_operand_raises(operand):
+    """The slab copies need 16-byte aligned cols and vals: a view 4 bytes
+    into its storage is refused, not sent down another path."""
+    _require_card()
+    cols, vals, x = _operands(5000, 9, 0, torch.float32)
+    if operand == "vals":
+        vals = torch.cat([vals.reshape(-1), vals.new_zeros(1)])[1:].view(vals.shape)
+    else:
+        cols = torch.cat([cols.reshape(-1), cols.new_zeros(1)])[1:].view(cols.shape)
+    before = spmv.spmv_ell.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        spmv.spmv_ell(cols, vals, x)
+    assert spmv.spmv_ell.launches == before
 
 
 @pytest.mark.gpu

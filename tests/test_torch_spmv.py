@@ -203,3 +203,87 @@ def test_wrapper_rejects_bad_operands(case, exc):
         fn = spmv.spmv_ell_multi
     with pytest.raises(exc):
         fn(cols, vals, x)
+
+
+# The launch plan of the CUDA kernels (kernels/spmv.py:launch_plan), checked
+# on the host: the kernels themselves run only on the card.
+
+PLAN_CASES = [(589824, 9, 1, 4), (589824, 9, 1, 2), (589824, 9, 1, 8), (36864, 13, 1, 4),
+              (589824, 3, 1, 2), (196610, 9, 6, 4), (196610, 9, 6, 2), (196610, 9, 6, 8),
+              (196610, 3, 6, 2), (1, 1, 1, 4), (7, 16, 8, 8), (255, 9, 1, 4),
+              (257, 9, 1, 2), (132 * 8 * 256 + 1, 9, 1, 4), (1000, 5, 3, 2)]
+
+
+def _slab_schedule(plan, n):
+    """Rows each CTA of the persistent slab kernel computes, as
+    csrc/spmv_ell.cu:spmv_slab_kernel walks them: CTA b takes slabs b,
+    b + grid, ...; full slabs through the ring, the partial last one from
+    global memory."""
+    n_slabs = -(-n // plan.rows)
+    for b in range(plan.grid):
+        for s in range(b, n_slabs, plan.grid):
+            yield s, range(s * plan.rows, min((s + 1) * plan.rows, n))
+
+
+@pytest.mark.parametrize("ctas_per_sm", [1, 3, 8])
+@pytest.mark.parametrize("n,w,c,vs", PLAN_CASES)
+def test_slab_schedule_covers_every_row_once(n, w, c, vs, ctas_per_sm):
+    plan = spmv.launch_plan(n, w, c, vs, lambda v, t, s: ctas_per_sm)
+    assert plan.variant == "slab"
+    hits = np.zeros(n, np.int64)
+    for _, rows in _slab_schedule(plan, n):
+        hits[rows.start:rows.stop] += 1
+    assert (hits == 1).all()
+    assert 1 <= plan.grid <= ctas_per_sm * spmv.SMS
+
+
+@pytest.mark.parametrize("n,w,c,vs", PLAN_CASES)
+def test_slab_copies_are_16_byte_multiples(n, w, c, vs):
+    """Every full slab's offset and byte count, in cols and in vals, is a
+    multiple of 16 (the bulk copy's rule), bf16 with odd W included, and the
+    ring fits the CTA's shared memory."""
+    plan = spmv.launch_plan(n, w, c, vs)
+    per_pass = plan.threads // spmv.row_lanes(c, spmv.x_elem_size(vs))
+    assert plan.rows % 8 == 0 and 8 <= plan.rows and plan.rows % (per_pass // 8 * 8) == 0
+    n_full = n // plan.rows
+    for s, _ in _slab_schedule(plan, n):
+        if s < n_full:
+            for size in (4, vs):
+                assert (s * plan.rows * w * size) % 16 == 0
+                assert (plan.rows * w * size) % 16 == 0
+    assert plan.smem == plan.stages * plan.rows * w * (4 + vs) <= spmv.SMEM_PER_CTA
+
+
+@pytest.mark.parametrize("w", [0, 1, 3, 9, 13, 16, 17, 40, 49, 64, 65, 69, 128, 129, 300])
+@pytest.mark.parametrize("vs", [2, 4, 8])
+def test_variant_follows_width(w, vs):
+    """Slab rows up to SLAB_MAX_WIDTH slots; past it G lanes per row, at most
+    8 slots a lane, and the group grid covers every row."""
+    n = 36864
+    plan = spmv.launch_plan(n, w, 6, vs, lambda v, t, s: 2)
+    if 1 <= w <= spmv.SLAB_MAX_WIDTH:
+        assert plan.variant == "slab" and plan.group == 0
+    else:
+        assert plan.variant == "group" and plan.rows == 0 and plan.smem == 0
+        assert plan.group in (4, 8, 16, 32) and -(-w // plan.group) <= max(8, -(-w // 32))
+        assert plan.threads % plan.group == 0
+        # the persistent row blocks (csrc/spmv_ell.cu:spmv_group_kernel)
+        per_cta = plan.threads // plan.group
+        hits = np.zeros(n, np.int64)
+        for b in range(plan.grid):
+            for base in range(b * per_cta, n, plan.grid * per_cta):
+                hits[base:base + per_cta] += 1
+        assert (hits == 1).all() and plan.grid <= 2 * spmv.SMS
+
+
+def test_launch_plan_refuses_bad_columns():
+    for c in (0, 9):
+        with pytest.raises(ValueError):
+            spmv.launch_plan(100, 9, c, 4)
+
+
+@pytest.mark.parametrize("c,elem,want", [(1, 4, 4), (2, 4, 8), (3, 4, 4), (4, 4, 16),
+                                         (6, 4, 8), (8, 4, 16), (1, 8, 8), (3, 8, 8),
+                                         (6, 8, 16)])
+def test_vector_bytes(c, elem, want):
+    assert spmv.vector_bytes(c, elem) == want
