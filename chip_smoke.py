@@ -12,10 +12,12 @@ any failure raises, so the run exits non-zero and prints no final ok line.
      point (``python -m meshopticalflow_tpu_torch.kernels.probes``), then each
      against its plain version and the reference script's numpy expectation,
      with times, bounds and the one-call PyTorch yardstick;
-  4. the reference-binary goldens in float64 on the card: ref_vertex.ply,
-     ref_cube256.png through the CLI default (multigrid), and the same cube
-     with ``use_multigrid=False`` through the library, so both solvers stay
-     gated;
+  4. the reference-binary goldens in float64 on the card: ref_vertex.ply
+     and the five goldens of the other bases (Conformal, Connection in its
+     three modes, divFree), ref_cube256.png through the CLI default
+     (multigrid), and the same cube with ``use_multigrid=False``,
+     ``--flowBackend xla``, ``flow_mg_levels=2`` and ``mg_c1_bf16``, so every
+     solver stays gated;
   5. the Jacobi-PCG path at full size (``use_multigrid=False``):
      tests/golden/cube.ply at the CLI's default edge length (393,216
      triangles) with the 256^2 golden textures upsampled 8x to 2048^2;
@@ -23,22 +25,28 @@ any failure raises, so the run exits non-zero and prints no final ok line.
      24,576-triangle root by the port's own subdivide_tracked, written as a
      textured PLY, then CLI defaults (float32, 10 levels, edge length 0.006:
      393,216 fine triangles), from_texture_inputs -> run -> halfway_texture;
-  7. each SpMV kernel against its plain version at the operators of that
-     problem (the f32 / bf16 / f64 flow and smoothing operators, the c1
-     operator, the rectangular transfers P0 and P0^T of both hierarchies),
+  6b. the Conformal (``--vfMode 1``) and Connection (``--vfMode 2``) bases
+     at the multigrid cell's size, CLI defaults otherwise: no patch level,
+     so the flow and smoothing solves are the two-level cycle, with a host
+     coarse solve in every iteration; then the split of one two-level
+     iteration (device work, the host round trip);
+  7. each SpMV kernel against its plain version at the operators of those
+     problems (the f32 / bf16 / f64 flow and smoothing operators, the c1
+     operator, the rectangular transfers P0 and P0^T of both hierarchies;
+     the conformal and connection flow operators and their f32 transfers),
      with its launch plan, warm and cold-L2 times, the warm time with the
      scattered gather of x taken out (every slot of a row reading one x
      element), the byte bound (stored non-zeros only), cuSPARSE's time on
      the same operator, and the launches of its form (wrapper, value type,
      square or rectangular, slab or lane-group variant) in the draws of
-     phases 5 and 6; then the split of one
+     phases 5, 6 and 6b; then the split of one
      multigrid PCG iteration, each part timed alone (the sweeps' share of
      the levels is timed inside phase 6's run);
   8. the result lines.
 
-Every phase that drives a path (3, 5, 6) sets the launch counts to 0 just
-before it and reads them just after; phases 5 and 6 print and record the
-SpMV launches per form. The second-to-last line is a JSON record
+Every phase that drives a path (3, 5, 6, 6b) sets the launch counts to 0
+just before it and reads them just after; phases 5, 6 and 6b print and
+record the SpMV launches per form. The second-to-last line is a JSON record
 of the nine kernels; the last line is {"ok": true, "device": {...}}. Scratch
 files and the full records go to chiprun_out/chip_smoke/.
 """
@@ -298,19 +306,64 @@ def probe_phase(probes):
 # Phase 4: goldens
 # ----------------------------------------------------------------------------
 
-def vertex_blend(device):
+# The vertex goldens of the other bases and their largest allowed u8
+# difference (tests/test_golden.py:48-72).
+VERTEX_GOLDENS = ((["--vfMode", "1"], "ref_vertex_conformal.ply", 0),
+                  (["--vfMode", "2"], "ref_vertex_connection.ply", 0),
+                  (["--vfMode", "2", "--cMode", "1"], "ref_vertex_cmode1.ply", 1),
+                  (["--vfMode", "2", "--cMode", "2"], "ref_vertex_cmode2.ply", 1),
+                  (["--vfMode", "1", "--divFree"], "ref_vertex_divfree.ply", 1))
+# (config changes, tag) of the 256^2 cube golden runs
+CUBE_SOLVERS = (({}, "multigrid"), (dict(use_multigrid=False), "jacobi"),
+                (dict(flow_backend="xla"), "xla"), (dict(flow_mg_levels=2), "2level"),
+                (dict(mg_c1_bf16=True), "c1_bf16"))
+
+
+def vertex_blend(device, flags=()):
     """The per-vertex halfway blend (float64) of the a/b golden pair."""
     from meshopticalflow_tpu_torch.apps.optical_flow import build_parser, config_from_args
     from meshopticalflow_tpu_torch.flow.pipeline import FlowProblem
 
     a, b = os.path.join(GOLD, "a.ply"), os.path.join(GOLD, "b.ply")
     cfg = config_from_args(build_parser().parse_args(
-        ["--in", a, b, "--out", "unused.ply", "--dtype", "float64"]))
+        ["--in", a, b, "--out", "unused.ply", "--dtype", "float64", *flags]))
     prob = FlowProblem.from_vertex_inputs(a, b, cfg, device=device)
     prob.run()
-    prob.write_output(os.path.join(WORK, f"golden_vertex_{device}.ply"))
+    tag = "_".join(flags).replace("-", "") or "whitney"
+    prob.write_output(os.path.join(WORK, f"golden_vertex_{tag}_{device}.ply"))
     adv = prob.advected_vertex_colors()
     return (adv[0] + adv[1]) / 2.0
+
+
+def check_vertex_goldens():
+    """The five goldens of the other bases on the CPU and the card, at the
+    JAX tests' thresholds; a channel whose CPU blend is within 1e-9 of an
+    integer (a knife edge) may land one level lower on either device (the
+    CPU run of the Connection golden has one such channel)."""
+    from meshopticalflow_tpu_torch.io.ply import read_triangle_mesh
+
+    out = {}
+    for flags, fixture, max_lvl in VERTEX_GOLDENS:
+        ref = read_triangle_mesh(os.path.join(GOLD, fixture)).colors.astype(int)
+        cpu = vertex_blend("cpu", flags)
+        gpu = vertex_blend(DEVICE, flags)
+        knife = np.abs(cpu - np.round(cpu)) < 1e-9
+        rec = {}
+        for where, blend in (("cpu", cpu), ("cuda", gpu)):
+            diff = np.abs(np.clip(blend, 0, 255).astype(np.uint8).astype(int) - ref)
+            off = diff > max_lvl
+            rec[where] = dict(max_diff=int(diff.max()), off_at_knife_edges=int(off.sum()))
+            if (diff > max_lvl + 1).any() or (off & ~knife).any():
+                raise RuntimeError(f"{fixture} on {where}: max diff {int(diff.max())} "
+                                   f"(allowed {max_lvl}) off the knife edges")
+        rec["max_abs_cuda_minus_cpu"] = float(np.abs(gpu - cpu).max())
+        out[fixture] = rec
+        phase(4, f"{fixture} ({' '.join(flags)}): max u8 diff cpu {rec['cpu']['max_diff']}, "
+                 f"cuda {rec['cuda']['max_diff']} (allowed {max_lvl}; knife-edge channels "
+                 f"one lower: cpu {rec['cpu']['off_at_knife_edges']}, cuda "
+                 f"{rec['cuda']['off_at_knife_edges']}); max |cuda - cpu| blend "
+                 f"{rec['max_abs_cuda_minus_cpu']:.3e}")
+    return out
 
 
 def _texture_scores(path):
@@ -330,8 +383,10 @@ def check_goldens(spmv):
     orders may land one ulp below it. The CPU run must reproduce the golden
     byte for byte; the card must match it on every channel that is not such
     a knife edge, and be within one level on those that are. The texture
-    golden runs twice: the CLI default (multigrid, which must reach the
-    rectangular transfers) and use_multigrid=False (Jacobi-PCG)."""
+    golden runs through the CLI default (multigrid) and through the library
+    with use_multigrid=False (Jacobi-PCG), flow_backend "xla", flow_mg_levels
+    2 and mg_c1_bf16; every multigrid run must reach the rectangular
+    transfers, and the Jacobi run none."""
     from meshopticalflow_tpu_torch.apps.optical_flow import (
         build_parser, config_from_args, main as cli)
     from meshopticalflow_tpu_torch.flow.pipeline import FlowProblem
@@ -356,8 +411,8 @@ def check_goldens(spmv):
     argv = ["--mesh", os.path.join(GOLD, "cube.ply"), "--in", os.path.join(GOLD, "mA.png"),
             os.path.join(GOLD, "mB.png"), "--out", "", "--eLength", "0.06",
             "--dtype", "float64", "--device", DEVICE]
-    out = {}
-    for solver in ("multigrid", "jacobi"):
+    out = {"vertex": check_vertex_goldens()}
+    for changes, solver in CUBE_SOLVERS:
         path = os.path.join(WORK, f"golden_cube256_{solver}.png")
         argv[argv.index("--out") + 1] = path
         spmv.reset_counts()
@@ -366,7 +421,7 @@ def check_goldens(spmv):
             cli(argv)
         else:
             cfg = dataclasses.replace(config_from_args(build_parser().parse_args(argv)),
-                                      use_multigrid=False)
+                                      **changes)
             prob = FlowProblem.from_texture_inputs(argv[1], (argv[3], argv[4]), cfg,
                                                    device=DEVICE)
             prob.run()
@@ -384,7 +439,7 @@ def check_goldens(spmv):
         if counts["spmv_ell"] == 0 or counts["spmv_ell_multi"] == 0 or counts["plain_on_cuda"]:
             raise RuntimeError(f"golden run ({solver}) did not go through the kernels: "
                                f"{counts}")
-        if (launches_where(counts, shape="rectangular") > 0) != (solver == "multigrid"):
+        if (launches_where(counts, shape="rectangular") > 0) != (solver != "jacobi"):
             raise RuntimeError(f"golden run ({solver}) took the wrong solver: {counts}")
     return out
 
@@ -497,7 +552,18 @@ def drive(spmv, mesh, paths, size, cfg, tag: str, n: int,
                levels=[{k: m[k] for k in keys} for m in res.metrics],
                halfway_exhausted=prob.last_advect_stats["exhausted"],
                launches=counts, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    if prob.hier is not None:
+    hier = prob.hier
+    if hier is not None:
+        rec["hierarchy"] = dict(
+            flow_kind=hier.flow_kind, smooth_kind=hier.smooth_kind,
+            c1_unknowns=hier.coarse.coarse_dev.n_coeffs,
+            c1_ell_width=hier.coarse.coarse_dev.ell_width,
+            vertex_coarse_unknowns=int(hier.vcoarse.cols0.shape[0]))
+        for key, t in (("p0", hier.coarse.transfer), ("vertex_p0", hier.vcoarse.transfer)):
+            if t is not None:
+                rec["hierarchy"][key + "_width"] = int(t.p.cols.shape[1])
+                rec["hierarchy"][key + "t_width"] = int(t.pt.cols.shape[1])
+    if hier is not None and hier.flow_kind == "mg3":
         fpack, vpack = prob.hier.patch.mg_pack, prob.hier.vcoarse.mg_pack
         rec["mg"] = dict(
             c1_unknowns=fpack.n1, vertex_coarse_unknowns=vpack.n1,
@@ -528,8 +594,10 @@ def drive(spmv, mesh, paths, size, cfg, tag: str, n: int,
              f"{counts['spmv_ell_multi']}, plain on CUDA {counts['plain_on_cuda']}")
     for form, k in counts["by_form"].items():
         phase(n, f"launches of {form}: {k}")
+    if hier is not None:
+        phase(n, f"hierarchy {json.dumps(rec['hierarchy'])}")
     if "mg" in rec:
-        phase(n, f"hierarchy {json.dumps(rec['mg'])}")
+        phase(n, f"multigrid pack {json.dumps(rec['mg'])}")
     metrics = [v for m in rec["levels"] for k, v in m.items() if k != "level"]
     metrics += [init_s, run_s, out_s]
     if not all(math.isfinite(float(v)) for v in metrics):
@@ -598,6 +666,138 @@ def multigrid_path(spmv, root, paths, size):
     return prob, rec
 
 
+# Bases whose two-level flow cycle misses flow_refine_tol at CLI defaults
+# in the JAX package as in the port, measured on the CPU; their draws record
+# the misses instead of failing on them (every value must still be finite).
+# Conformal, float32: the coarse system is singular (constant potentials)
+# and its 1e-12 * max|diag| Tikhonov guard leaves the float32 rounding of the
+# restricted residual's null-space part amplified ~1e12, so the inner solve
+# diverges and refinement keeps x = 0: flow_res 1.0 at every level (cube root
+# of 1,536 triangles subdivided to 24,576, mA/mB, 4 levels: JAX 1.0, 1.0,
+# 1.0, 0.90; the port 1.0 at all four).
+FLOW_RES_MISS_OF_THE_METHOD = ("conformal",)
+
+
+def twolevel_path(spmv, root, paths, size, vf_mode: int, tag: str):
+    """Phase 6b: one non-Whitney basis at the multigrid cell's size, CLI
+    defaults otherwise (float32, 10 levels): the two-level cycle for the
+    flow and the smoothing solves."""
+    from meshopticalflow_tpu_torch.apps.optical_flow import build_parser, config_from_args
+
+    cfg = config_from_args(build_parser().parse_args(
+        ["--mesh", root, "--in", *paths, "--out", "unused.png", "--vfMode", str(vf_mode)]))
+    prob, rec = drive(spmv, root, paths, size, cfg, tag, "6b")
+    counts = rec["launches"]
+    if (prob.hier is None or prob.hier.patch is not None
+            or (prob.hier.flow_kind, prob.hier.smooth_kind) != ("twolevel", "twolevel")):
+        raise RuntimeError(f"{tag}: not the two-level hierarchy")
+    for form in (dict(kernel="spmv_ell", dtype="f32", shape="square"),
+                 dict(kernel="spmv_ell", dtype="f32", shape="rectangular"),
+                 dict(kernel="spmv_ell_multi", dtype="f32", shape="square"),
+                 dict(kernel="spmv_ell_multi", dtype="f32", shape="rectangular")):
+        if launches_where(counts, **form) == 0:
+            raise RuntimeError(f"{tag}: no {form} launches on the path: {counts}")
+    if launches_where(counts, dtype="bf16"):
+        raise RuntimeError(f"{tag}: the two-level cycle streamed bf16 values: {counts}")
+    limit = 10 * cfg.flow_refine_tol
+    misses = [m["level"] for m in rec["levels"] if not m["flow_res"] <= limit]
+    rec["flow_res_misses"] = misses
+    phase("6b", f"{tag}: flow_iters per level "
+                + ", ".join(f"{m['flow_iters']:.0f}" for m in rec["levels"])
+                + "; levels above 10 x flow_refine_tol: " + (str(misses) if misses else "none"))
+    if misses and tag not in FLOW_RES_MISS_OF_THE_METHOD:
+        raise RuntimeError(f"{tag}: levels {misses} end above 10 x flow_refine_tol")
+    rec["split"] = twolevel_split(prob, tag)
+    with open(os.path.join(WORK, f"main_path_{tag}.json"), "w") as f:
+        json.dump(rec, f, indent=1)
+    return prob, rec
+
+
+def _final_systems(prob):
+    """The last state's level systems, rebuilt as a level builds them:
+    (flow system values, flow diag, flow rhs, data blocks, scale, weight,
+    smoothing system values, smoothing rhs)."""
+    import torch
+    from meshopticalflow_tpu_torch.flow import pipeline as P
+    from meshopticalflow_tpu_torch.flow.signal import _smooth_system
+    from meshopticalflow_tpu_torch.models.base import build_flow_system
+
+    arrays, cfg, hier = prob.arrays, prob.config, prob.hier
+    s_weight = cfg.scalar_smooth_weight
+    smoothed, _, _ = P._stage_smooth(arrays, s_weight, cfg, hier)
+    d_blocks, rhs_t, _, _, _ = P._stage_resample(arrays, prob.tfield, smoothed, cfg)
+    w = torch.tensor(cfg.resolved_vf_smooth_weight(), dtype=prob.dtype, device=prob.device)
+    sys_vals, _, rhs, diag, scale = build_flow_system(arrays.basis, d_blocks, rhs_t, w)
+    sm_vals, sm_b, _ = _smooth_system(arrays.smooth_ops, arrays.signals, s_weight)
+    return dict(sys_vals=sys_vals, diag=diag, rhs=rhs, d_blocks=d_blocks, scale=scale, w=w,
+                sm_vals=sm_vals, sm_b=sm_b)
+
+
+def _wall_ms(fn, reps: int = 15) -> float:
+    """Median host wall time of fn() followed by a device synchronize."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def twolevel_split(prob, tag: str):
+    """One two-level PCG iteration of the last state's flow system, split at
+    the host coarse solve: the device part (post-smooth, CG step, pre-smooth
+    and restriction: device time and issued time), the host round trip
+    (restricted residual to the host, splu solve, correction back; wall
+    time) with the splu solve alone, and the whole iteration as the solve
+    loop runs it (wall time, its residual read included)."""
+    import torch
+    from meshopticalflow_tpu_torch.models import base
+
+    cfg, hier = prob.config, prob.hier
+    sy = _final_systems(prob)
+    solver = base._make_mg_solver(prob.arrays.basis, hier.coarse, None, sy["d_blocks"],
+                                  sy["scale"], sy["w"], sy["sys_vals"], sy["diag"],
+                                  hier.flow_kind, cfg.mg_cheb_k, cfg.mg_nu,
+                                  cfg.mg_fine_cheb, cfg.mg_coarse_exact)
+    rhs = sy["rhs"]
+    z1, rc = solver.pre_cycle(rhs)
+    ec = solver.coarse_solve(rc)
+    zero = torch.zeros_like(rhs)
+    rz0 = torch.ones((), dtype=prob.dtype, device=prob.device)
+    rc_host = rc.detach().to("cpu", torch.float64).numpy()
+
+    def splu_only():
+        solver.coarse_lu.solve(rc_host)
+
+    def whole():
+        out = solver.iteration(zero, rhs, z1, solver.coarse_solve(rc), zero, rz0)
+        float(out[-1])
+
+    device_part = lambda: solver.iteration(zero, rhs, z1, ec, zero, rz0)   # noqa: E731
+    out = dict(coarse_unknowns=solver.n_coarse, factor_s=solver.factor_seconds,
+               lu_fill=int(solver.coarse_lu.L.nnz + solver.coarse_lu.U.nnz),
+               device_part_device_ms=median_ms(device_part, reps=9, inner=3),
+               device_part_issued_ms=issue_ms(device_part, reps=9, inner=3),
+               round_trip_wall_ms=_wall_ms(lambda: solver.coarse_solve(rc)),
+               splu_solve_ms=_wall_ms(splu_only),
+               iteration_wall_ms=_wall_ms(whole))
+    out["device_idle_share_of_iteration"] = 1 - (out["device_part_device_ms"]
+                                                 / out["iteration_wall_ms"])
+    phase("6b", ("{tag}: one two-level flow iteration {iteration_wall_ms:.3f} ms of wall "
+                 "({device_part_device_ms:.3f} ms of device time, issued in "
+                 "{device_part_issued_ms:.3f} ms); host round trip {round_trip_wall_ms:.3f} ms, "
+                 "of which splu solve {splu_solve_ms:.3f} ms ({coarse_unknowns} coarse "
+                 "unknowns, factored in {factor_s:.3f} s, L+U {lu_fill} non-zeros); device "
+                 "idle {pct:.1f} % of the iteration").format(
+                     tag=tag, pct=100 * out["device_idle_share_of_iteration"], **out))
+    return out
+
+
 # ----------------------------------------------------------------------------
 # Phase 7: the SpMV kernels at the multigrid problem's operators
 # ----------------------------------------------------------------------------
@@ -621,56 +821,73 @@ def _library_ms(cols, vals, x, n_in):
     return median_ms(lambda: csr @ xx), None
 
 
-def mg_operators(prob):
-    """(name, cols, vals, x) at the operators the multigrid main path runs,
-    rebuilt from the problem's final state."""
+def _rand(*shape):
     import torch
-    from meshopticalflow_tpu_torch.flow import pipeline as P
-    from meshopticalflow_tpu_torch.flow.signal import _smooth_system
-    from meshopticalflow_tpu_torch.models.base import build_flow_system, coarse_system_vals
+
+    gen = torch.Generator(device=DEVICE).manual_seed(sum(shape))
+    return torch.randn(*shape, generator=gen, device=DEVICE, dtype=torch.float32)
+
+
+def mg_operators(prob):
+    """(name, operator, cols, vals, x) at the operators the multigrid main
+    path runs, rebuilt from the problem's final state."""
+    from meshopticalflow_tpu_torch.models.base import coarse_system_vals
     from meshopticalflow_tpu_torch.solvers.mg import bf16_values
 
-    arrays, cfg, hier = prob.arrays, prob.config, prob.hier
-    s_weight = cfg.scalar_smooth_weight
-    smoothed, _, _ = P._stage_smooth(arrays, s_weight, cfg, hier)
-    d_blocks, rhs_t, _, _, _ = P._stage_resample(arrays, prob.tfield, smoothed, cfg)
-    weight = torch.tensor(cfg.resolved_vf_smooth_weight(), dtype=prob.dtype,
-                          device=prob.device)
-    flow_vals, _, rhs, _, scale = build_flow_system(arrays.basis, d_blocks, rhs_t, weight)
-    c1_vals, _ = coarse_system_vals(hier.coarse.coarse_dev, d_blocks, scale, weight)
-    sm_vals, sm_b, _ = _smooth_system(arrays.smooth_ops, arrays.signals, s_weight)
+    arrays, hier = prob.arrays, prob.hier
+    sy = _final_systems(prob)
+    flow_vals, rhs, sm_vals, sm_b = sy["sys_vals"], sy["rhs"], sy["sm_vals"], sy["sm_b"]
+    c1_vals, _ = coarse_system_vals(hier.coarse.coarse_dev, sy["d_blocks"], sy["scale"],
+                                    sy["w"])
     fpack, vpack = hier.patch.mg_pack, hier.vcoarse.mg_pack
     fcols, vcols = arrays.basis.ell_cols, arrays.smooth_ops.cols
-    gen = torch.Generator(device=DEVICE).manual_seed(0)
-
-    def rand(*shape):
-        return torch.randn(*shape, generator=gen, device=DEVICE, dtype=torch.float32)
-
     n1, nv1 = fpack.n1, vpack.n1
     c = sm_b.shape[1]
     return [
         ("spmv_ell", "flow", fcols, flow_vals, rhs),
         ("spmv_ell", "flow", fcols, bf16_values(flow_vals, fpack.fine_canon), rhs),
         ("spmv_ell", "flow", fcols, flow_vals.double(), rhs.double()),
-        ("spmv_ell", "c1", hier.coarse.coarse_dev.ell_cols, c1_vals, rand(n1)),
-        ("spmv_ell", "P0", fpack.p0.cols, fpack.p0.vals, rand(n1)),
+        ("spmv_ell", "c1", hier.coarse.coarse_dev.ell_cols, c1_vals, _rand(n1)),
+        ("spmv_ell", "P0", fpack.p0.cols, fpack.p0.vals, _rand(n1)),
         ("spmv_ell", "P0^T", fpack.p0t.cols, fpack.p0t.vals, rhs),
         ("spmv_ell_multi", "smoothing", vcols, sm_vals, sm_b),
         ("spmv_ell_multi", "smoothing", vcols, bf16_values(sm_vals, vpack.fine_canon), sm_b),
         ("spmv_ell_multi", "smoothing", vcols, sm_vals.double(), sm_b.double()),
-        ("spmv_ell_multi", "vertex P0", vpack.p0.cols, vpack.p0.vals, rand(nv1, c)),
+        ("spmv_ell_multi", "vertex P0", vpack.p0.cols, vpack.p0.vals, _rand(nv1, c)),
         ("spmv_ell_multi", "vertex P0^T", vpack.p0t.cols, vpack.p0t.vals, sm_b),
     ]
 
 
-def check_spmv(spmv, prob, l2_tb_s: float, draws: dict):
-    """Phase 7: every SpMV form against its plain version, timed, with its
-    form's launches in each draw of ``draws`` (tag -> record) and those
-    launches times (warm time - bound)."""
+def twolevel_operators(prob, tag: str, f64: bool, vertex: bool):
+    """The forms a two-level draw adds: its flow operator (f32, and f64
+    when ``f64``: the refinement residuals), its f32 transfers P0 / P0^T,
+    and (``vertex``) the smoothing cycle's f32 vertex transfers."""
+    hier = prob.hier
+    sy = _final_systems(prob)
+    flow_vals, rhs, sm_b = sy["sys_vals"], sy["rhs"], sy["sm_b"]
+    fcols = prob.arrays.basis.ell_cols
+    t, vt = hier.coarse.transfer, hier.vcoarse.transfer
+    ops = [("spmv_ell", f"{tag} flow", fcols, flow_vals, rhs)]
+    if f64:
+        ops.append(("spmv_ell", f"{tag} flow", fcols, flow_vals.double(), rhs.double()))
+    ops += [("spmv_ell", f"{tag} P0", t.p.cols, t.p.vals, _rand(t.pt.cols.shape[0])),
+            ("spmv_ell", f"{tag} P0^T", t.pt.cols, t.pt.vals, rhs)]
+    if vertex:
+        c = sm_b.shape[1]
+        ops += [("spmv_ell_multi", "two-level vertex P0", vt.p.cols, vt.p.vals,
+                 _rand(vt.pt.cols.shape[0], c)),
+                ("spmv_ell_multi", "two-level vertex P0^T", vt.pt.cols, vt.pt.vals, sm_b)]
+    return ops
+
+
+def check_spmv(spmv, operators, l2_tb_s: float, draws: dict):
+    """Phase 7: every SpMV form of ``operators`` against its plain version,
+    timed, with its form's launches in each draw of ``draws`` (tag ->
+    record) and those launches times (warm time - bound)."""
     import torch
 
     report = []
-    for name, op, cols, vals, x in mg_operators(prob):
+    for name, op, cols, vals, x in operators:
         kernel, plain = getattr(spmv, name), getattr(spmv, name + "_plain")
         tname = str(vals.dtype).removeprefix("torch.")
         x = x.contiguous()
@@ -745,12 +962,11 @@ def iteration_split(prob):
     from meshopticalflow_tpu_torch.solvers import mg
 
     arrays, cfg, hier = prob.arrays, prob.config, prob.hier
-    smoothed, _, _ = P._stage_smooth(arrays, cfg.scalar_smooth_weight, cfg, hier)
-    d_blocks, rhs_t, _, _, _ = P._stage_resample(arrays, prob.tfield, smoothed, cfg)
-    w = torch.tensor(cfg.resolved_vf_smooth_weight(), dtype=prob.dtype, device=prob.device)
-    sys_vals, _, rhs, diag, scale = base.build_flow_system(arrays.basis, d_blocks, rhs_t, w)
-    solver = base._make_mg_solver(hier.coarse, hier.patch, d_blocks, scale, w, sys_vals,
-                                  diag, cfg.mg_cheb_k, cfg.mg_nu, cfg.mg_fine_cheb, True)
+    sy = _final_systems(prob)
+    rhs = sy["rhs"]
+    solver = base._make_mg_solver(arrays.basis, hier.coarse, hier.patch, sy["d_blocks"],
+                                  sy["scale"], sy["w"], sy["sys_vals"], sy["diag"],
+                                  "mg3", cfg.mg_cheb_k, cfg.mg_nu, cfg.mg_fine_cheb, True)
     r1 = torch.ones(hier.patch.mg_pack.n1, dtype=prob.dtype, device=prob.device)
     zero = torch.zeros_like(rhs)
     rz0 = torch.ones((), dtype=prob.dtype, device=prob.device)
@@ -819,13 +1035,20 @@ def main() -> int:
 
     root = write_mg_root()
     prob, mg_rec = multigrid_path(spmv, root, paths, size)
+    operators = mg_operators(prob)
+    draws = {"multigrid": mg_rec, "jacobi": jacobi}
+    for vf_mode, tag in ((1, "conformal"), (2, "connection")):
+        tprob, draws[tag] = twolevel_path(spmv, root, paths, size, vf_mode, tag)
+        operators += twolevel_operators(tprob, tag, f64=tag == "conformal",
+                                        vertex=tag == "conformal")
+        del tprob
 
     rates = dict(hbm_copy_tb_s=copy_rate_tb_s(2 ** 30), l2_copy_tb_s=copy_rate_tb_s(2 ** 24))
     phase(7, f"measured copy rates: HBM {rates['hbm_copy_tb_s']:.3f} TB/s (1 GB), "
              f"L2-resident {rates['l2_copy_tb_s']:.3f} TB/s (16 MB); published HBM "
              f"{HBM_TB_S} TB/s")
-    spmv_report = check_spmv(spmv, prob, rates["l2_copy_tb_s"],
-                             {"multigrid": mg_rec, "jacobi": jacobi})
+    spmv_report = check_spmv(spmv, operators, rates["l2_copy_tb_s"], draws)
+    del operators
     split = iteration_split(prob)
     del prob
     torch.cuda.empty_cache()
@@ -843,7 +1066,8 @@ def main() -> int:
             launches=mg_rec["launches"][name], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], ms_cold=r["ms_cold"], issue_ms=r["issue_ms"],
-            launches_jacobi_path=jacobi["launches"][name]))
+            **{f"launches_{tag}_path": draws[tag]["launches"][name]
+               for tag in ("jacobi", "conformal", "connection")}))
     for fn_name, rec in probe_report.items():
         kernels.append(dict(
             name=fn_name, route="cuda", source="meshopticalflow_tpu_torch/csrc/probes.cu",
@@ -855,6 +1079,8 @@ def main() -> int:
     with open(os.path.join(WORK, "kernels.json"), "w") as f:
         json.dump(dict(card=card, rates=rates, spmv=spmv_report, probes=probe_report,
                        iteration_split=split, sweeps=mg_rec["sweeps"], goldens=goldens,
+                       twolevel_split={t: draws[t]["split"] for t in ("conformal",
+                                                                      "connection")},
                        seconds=elapsed), f, indent=1)
     phase(8, f"all phases passed in {elapsed:.1f} s")
     print(card)

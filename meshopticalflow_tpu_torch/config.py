@@ -149,31 +149,23 @@ class FlowConfig:
 def require_supported(config: FlowConfig) -> None:
     """Refuse the settings whose code paths this package does not have.
 
-    The port runs the Whitney basis with the reference package's default
+    Every basis (Whitney, Conformal with or without ``divergence_free``,
+    Connection in each ``connection_mode``) and the reference package's
     solvers: with ``use_multigrid`` (the default) and a subdivided mesh, the
-    multigrid PCGs of solvers/mg.py (exact banded coarse solve, 3-level
-    fallback, ``mg_cheb_k``, ``mg_nu``, ``mg_fine_cheb``) inside float64
-    refinement (``flow_refine_tol``, ``flow_refine_floor``); otherwise the
-    plain Jacobi-PCG solves. Not ported: the 2-level XLA backend
-    (``flow_mg_levels`` other than 3) and bfloat16 coarse solve panels
-    (``mg_c1_bf16``). ``artifact_cache`` only speeds up the reference
-    package's init and changes no result here.
+    multigrid PCGs inside float64 refinement. ``flow_backend`` "auto" and
+    "pallas" take the Hopper-kernel cycle of solvers/mg.py (exact banded
+    coarse solve, ``mg_c1_bf16``, ``mg_cheb_k``, ``mg_nu``, ``mg_fine_cheb``),
+    "xla" the three-level cycle of solvers/mg3.py; without a patch level
+    (non-Whitney bases) or with ``flow_mg_levels`` 2 the flow solve is the
+    two-level cycle of solvers/twolevel.py. ``use_host_cholesky`` solves each
+    level on the host with scipy. Not ported: the multifrontal direct solve
+    (``flow_backend="mf"``) and the sharded halo cycle ("halo").
+    ``artifact_cache`` only speeds up the reference package's init and
+    changes no result here.
     """
     refused = []
-    if config.use_multigrid and config.flow_mg_levels != 3:
-        refused.append(f"flow_mg_levels={config.flow_mg_levels}")
-    if config.use_multigrid and config.mg_c1_bf16:
-        refused.append("mg_c1_bf16=True")
-    if config.flow_backend != "auto":
+    if config.flow_backend not in ("auto", "pallas", "xla"):
         refused.append(f"flow_backend={config.flow_backend!r}")
-    if VectorFieldMode(config.vf_mode) != VectorFieldMode.WHITNEY:
-        refused.append(f"vf_mode={VectorFieldMode(config.vf_mode).name}")
-    if ConnectionMode(config.connection_mode) != ConnectionMode.PROJECTED_BARYCENTRIC:
-        refused.append(f"connection_mode={ConnectionMode(config.connection_mode).name}")
-    if config.divergence_free:
-        refused.append("divergence_free=True")
-    if config.use_host_cholesky:
-        refused.append("use_host_cholesky=True")
     if config.dtype not in ("float32", "float64"):
         refused.append(f"dtype={config.dtype!r}")
     if refused:

@@ -4,15 +4,21 @@ Port of meshopticalflow_tpu/flow/pipeline.py:
   * init (WhitneyFlowViewer::Init, OpticalFlow.cpp:679-917): load inputs,
     subdivide, build the intrinsic mesh and chart-transition tables, bake
     textures to vertex signals, rasterize the texel sample table, exp-remap
-    off-triangle texels, build the Whitney basis and, when the mesh was
-    subdivided and ``use_multigrid`` (the default), the geometric hierarchy
-    (``attach_coarse_space``), then preprocess the comparison signals (log
-    space / DoG band, through the hierarchy when there is one);
+    off-triangle texels, build the vector-field basis (Whitney, Conformal or
+    Connection) and, when the mesh was subdivided and ``use_multigrid`` (the
+    default), the geometric hierarchy (``attach_coarse_space``), then
+    preprocess the comparison signals (log space / DoG band, through the
+    hierarchy when there is one);
   * per-level UpdateFlow (OpticalFlow.cpp:423-474): smooth -> advect +-1/2
     -> data term -> regularized Gauss-Newton step. With the hierarchy the
-    smoothing and the flow solve are multigrid PCGs (solvers/mg.py), the
-    flow solve inside adaptive float64 refinement; without it, Jacobi-PCG
-    (inside float64 iterative refinement for the flow);
+    smoothing and the flow solve are multigrid PCGs, the flow solve inside
+    adaptive float64 refinement: the Hopper-kernel cycle of solvers/mg.py
+    (``flow_backend`` "auto" or "pallas"), the three-level cycle of
+    solvers/mg3.py ("xla"), or, without a patch level (the Conformal and
+    Connection bases; the flow solve with ``flow_mg_levels`` 2), the
+    two-level cycle of solvers/twolevel.py. Without the hierarchy,
+    Jacobi-PCG (inside float64 iterative refinement for the flow);
+    ``use_host_cholesky`` solves each flow system on the host;
   * IterativeOptimization (OpticalFlow.cpp:1035-1056): coarse-to-fine weight
     schedule, then the final advection of both inputs to the halfway point
     and their blend.
@@ -32,10 +38,9 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-import scipy.sparse as sp
 import torch
 
-from meshopticalflow_tpu_torch.config import FlowConfig, require_supported
+from meshopticalflow_tpu_torch.config import FlowConfig, VectorFieldMode, require_supported
 from meshopticalflow_tpu_torch.flow.signal import (
     SmoothingOperators, _dog_renormalize, _smooth_system, dog_band, log_space,
     make_smoothing_operators, smooth_signal)
@@ -55,6 +60,9 @@ from meshopticalflow_tpu_torch.models.coarse import (
 from meshopticalflow_tpu_torch.solvers.cg import CGStats
 from meshopticalflow_tpu_torch.solvers.mg import (
     BandedBreakdownError, MG3MultiSolver, build_c1_band, build_mg_pack)
+from meshopticalflow_tpu_torch.solvers.mg3 import ThreeLevelSolver
+from meshopticalflow_tpu_torch.solvers.twolevel import (
+    TwoLevelSolver, build_transfer, padded_to_csr)
 from meshopticalflow_tpu_torch.ops.dataterm import data_term_blocks
 from meshopticalflow_tpu_torch.ops.ell import ell_matvec
 
@@ -73,12 +81,29 @@ class ProblemArrays:
 @dataclasses.dataclass
 class Hierarchy:
     """The geometric multigrid hierarchy of a subdivided problem: the flow
-    coarse space and patch level, and the vertex (smoothing) ones."""
+    coarse space and patch level, and the vertex (smoothing) ones. The patch
+    levels exist for the Whitney basis only (None otherwise). ``flow_kind``
+    and ``smooth_kind`` name the solvers the levels run: "mg3"
+    (solvers/mg.py), "xla" (solvers/mg3.py) or "twolevel"."""
 
     coarse: CoarseSpace
-    patch: PatchLevel
+    patch: Optional[PatchLevel]
     vcoarse: VertexCoarse
-    vpatch: VertexPatchLevel
+    vpatch: Optional[VertexPatchLevel]
+    flow_kind: str
+    smooth_kind: str
+
+
+def solver_kinds(config: FlowConfig, has_patch: bool) -> Tuple[str, str]:
+    """(flow, smoothing) solver of a hierarchy, as the reference picks them
+    (flow/pipeline.py:87-123, 279-311, 423; models/base.py:384-450): the
+    flow solve sees the patch level only with ``flow_mg_levels`` >= 3."""
+    def kind(patch: bool) -> str:
+        if not patch:
+            return "twolevel"
+        return "xla" if config.flow_backend == "xla" else "mg3"
+
+    return kind(has_patch and config.flow_mg_levels >= 3), kind(has_patch)
 
 
 @dataclasses.dataclass
@@ -136,7 +161,7 @@ def _preprocess_signals(smooth_ops: SmoothingOperators, raw: torch.Tensor,
     if config.dog_weight > 0:
         stacked = torch.cat([sig[0], sig[1]], dim=1)                  # (V, 6)
         if hier is not None:
-            solver, b = _vertex_mg_solver(smooth_ops, stacked, hier, config.dog_smooth)
+            solver, b = _vertex_solver(smooth_ops, stacked, hier, config.dog_smooth)
             smoothed, _ = solver.solve(b, x0=stacked, tol=config.cg_tol,
                                        max_iters=min(config.cg_max_iters, 400))
             bands = _dog_renormalize(smooth_ops, stacked, smoothed)
@@ -176,6 +201,24 @@ def _vertex_mg_solver(smooth_ops: SmoothingOperators, signals, hier: Hierarchy,
                           c1_band=vc.c1_band), b
 
 
+def _vertex_solver(smooth_ops: SmoothingOperators, signals, hier: Hierarchy, s_weight):
+    """Multi-rhs solver of the vertex smoothing system of ``hier.smooth_kind``
+    and its rhs."""
+    if hier.smooth_kind == "mg3":
+        return _vertex_mg_solver(smooth_ops, signals, hier, s_weight)
+    vc, vp = hier.vcoarse, hier.vpatch
+    w = torch.as_tensor(s_weight, dtype=signals.dtype, device=signals.device)
+    sys_vals, b, diag = _smooth_system(smooth_ops, signals, w)
+    c_vals, c_diag = _coarse_smooth_system(vc.m0_vals, vc.k0_vals, w,
+                                           _diag_slots(vc.cols0))
+    if hier.smooth_kind == "xla":
+        a2 = vp.m2_dense + w * vp.k2_dense
+        return ThreeLevelSolver(smooth_ops.cols, sys_vals, diag, vc.cols0, c_vals, c_diag,
+                                vc.transfer, a2, vp.transfer), b
+    return TwoLevelSolver(smooth_ops.cols, sys_vals, diag, vc.cols0, c_vals,
+                          vc.transfer), b
+
+
 def _diag_slots(cols: torch.Tensor) -> torch.Tensor:
     """(n,) slot of each row's diagonal in a square ELL pattern."""
     n = cols.shape[0]
@@ -209,6 +252,12 @@ def _stage_smooth(arrays: ProblemArrays, s_weight, config: FlowConfig,
         out, stats = smooth_signal(arrays.smooth_ops, arrays.signals, s_weight,
                                    tol=config.cg_tol, max_iters=config.cg_max_iters)
         return out, stats, {}
+    if hier.smooth_kind != "mg3":
+        solver, b = _vertex_solver(arrays.smooth_ops, arrays.signals, hier, s_weight)
+        out, stats = solver.solve(b, x0=arrays.signals, tol=config.cg_tol,
+                                  max_iters=min(config.cg_max_iters, 200))
+        return out, stats, dict(gb_per_iter=solver.gb_per_iter,
+                                factor_s=solver.factor_seconds)
     solver, b = _vertex_mg_solver(arrays.smooth_ops, arrays.signals, hier, s_weight)
     try:
         out, stats = _stage_smooth_mg(arrays, config, solver, b)
@@ -268,9 +317,12 @@ def _stage_resample(arrays: ProblemArrays, tfield, smoothed, config: FlowConfig)
 
 
 def _level_step(arrays: ProblemArrays, coeffs, tfield, s_weight, v_weight,
-                config: FlowConfig, warm_x=None, hier: Optional[Hierarchy] = None):
+                config: FlowConfig, warm_x=None, hier: Optional[Hierarchy] = None,
+                on_resampled=None):
     """One UpdateFlow level (OpticalFlow.cpp:423-474): smoothing, advection
     and data term, refined flow solve (multigrid with the hierarchy).
+    ``on_resampled`` (when given) receives the advected per-vertex signals
+    (V, 2C), the reference's --debug dump (OpticalFlow.cpp:458-465).
 
     Returns (new_coeffs, new_tfield, metrics, x) with x the solved direction."""
     device = coeffs.device
@@ -278,19 +330,23 @@ def _level_step(arrays: ProblemArrays, coeffs, tfield, s_weight, v_weight,
     smoothed, sm_stats, sm_info = _stage_smooth(arrays, s_weight, config, hier)
     _sync(device)
     _t1 = time.time()
-    d_blocks, rhs_t, align_err, exhausted, _ = _stage_resample(
+    d_blocks, rhs_t, align_err, exhausted, (t1, p1) = _stage_resample(
         arrays, tfield, smoothed, config)
+    if on_resampled is not None:
+        on_resampled(_advected_vertex_signals(arrays, smoothed, t1, p1))
     _sync(device)
     _t2 = time.time()
     mg = {} if hier is None else dict(
-        coarse=hier.coarse, patch=hier.patch, mg_cheb_k=config.mg_cheb_k,
-        mg_coarse_exact=config.mg_coarse_exact, mg_nu=config.mg_nu,
-        mg_fine_cheb=config.mg_fine_cheb, refine_tol=config.flow_refine_tol,
-        refine_floor=config.flow_refine_floor)
+        coarse=hier.coarse, patch=hier.patch, mg_kind=hier.flow_kind,
+        mg_cheb_k=config.mg_cheb_k,
+        mg_coarse_exact=config.mg_coarse_exact, mg_c1_bf16=config.mg_c1_bf16,
+        mg_nu=config.mg_nu, mg_fine_cheb=config.mg_fine_cheb,
+        refine_tol=config.flow_refine_tol, refine_floor=config.flow_refine_floor)
     flow = {}
     new_coeffs, new_tfield, cg_stats, x = update_optical_flow(
         arrays.basis, coeffs, d_blocks, rhs_t, v_weight,
         cg_tol=config.cg_tol, cg_max_iters=config.cg_max_iters,
+        use_host_cholesky=config.use_host_cholesky,
         refine=config.flow_refine, x0=warm_x, solve_info=flow, **mg)
     _sync(device)
     _t3 = time.time()
@@ -457,10 +513,13 @@ class FlowProblem:
                             tris0, verts0, parent, bary) -> Hierarchy:
         """The two-level geometric coarse spaces from subdivision parent
         tracking (models/coarse.py), one for the flow basis and one for the
-        smoothing solves, each with its patch level, and the solvers' static
-        operators: the padded-ELL MG packs (P0, P0^T built on the host) and
-        the RCM band layouts of the exact coarse solve. Each step's seconds
-        go into ``init_profile``."""
+        smoothing solves; for the Whitney basis also their patch levels
+        (the reference's ``has_patch``, flow/pipeline.py:930, 952-967). Then
+        the static operators of the solvers the levels run
+        (``solver_kinds``): the padded-ELL MG packs (P0, P0^T built on the
+        host) and the RCM band layouts of the exact coarse solve for
+        solvers/mg.py, or the working-dtype transfers of solvers/twolevel.py
+        and solvers/mg3.py. Each step's seconds go into ``init_profile``."""
         cfg, dev = self.config, self.device
         _t = time.time()
 
@@ -476,27 +535,44 @@ class FlowProblem:
         mark("coarse_space")
         vc = build_vertex_coarse(cfg, self.mesh, coarse_mesh, parent, bary, device=dev)
         mark("vertex_coarse")
-        patch, patch_ids = build_patch_level(cfg, coarse_mesh, cs, device=dev)
-        vp = build_vertex_patch_level_from(cfg, vc.m0_csr, vc.k0_csr, coarse_mesh,
-                                           patch_ids, device=dev)
-        mark("patch_levels")
-        patch.mg_pack = build_mg_pack(basis.ell_cols, cs.coarse_dev.ell_cols, cs.p0,
-                                      patch.p12_idx, patch.p12_wt,
-                                      int(patch.s2_dense.shape[0]), self.dtype, dev)
-        mark("mg_pack_flow")
-        patch.c1_band = build_c1_band(cs.coarse_dev.ell_cols, device=dev)
-        mark("c1_band_flow")
-        v_f, k0 = vc.p0_idx.shape
-        p0v = sp.csr_matrix((vc.p0_wt.cpu().numpy().astype(np.float64).ravel(),
-                             (np.repeat(np.arange(v_f), k0),
-                              vc.p0_idx.cpu().numpy().ravel())),
-                            shape=(v_f, vc.cols0.shape[0]))
-        vc.mg_pack = build_mg_pack(smooth_ops.cols, vc.cols0, p0v, vp.p12_idx,
-                                   vp.p12_wt, int(vp.m2_dense.shape[0]), self.dtype, dev)
-        mark("mg_pack_smooth")
-        vc.c1_band = build_c1_band(vc.cols0, device=dev)
-        mark("c1_band_smooth")
-        return Hierarchy(coarse=cs, patch=patch, vcoarse=vc, vpatch=vp)
+        patch = vp = None
+        if VectorFieldMode(cfg.vf_mode) == VectorFieldMode.WHITNEY:
+            patch, patch_ids = build_patch_level(cfg, coarse_mesh, cs, device=dev)
+            vp = build_vertex_patch_level_from(cfg, vc.m0_csr, vc.k0_csr, coarse_mesh,
+                                               patch_ids, device=dev)
+            mark("patch_levels")
+        flow_kind, smooth_kind = solver_kinds(cfg, patch is not None)
+        if flow_kind == "mg3":
+            patch.mg_pack = build_mg_pack(basis.ell_cols, cs.coarse_dev.ell_cols, cs.p0,
+                                          patch.p12_idx, patch.p12_wt,
+                                          int(patch.s2_dense.shape[0]), self.dtype, dev)
+            mark("mg_pack_flow")
+            patch.c1_band = build_c1_band(cs.coarse_dev.ell_cols, device=dev)
+            mark("c1_band_flow")
+        else:
+            cs.transfer = build_transfer(cs.p0, self.dtype, dev)
+            if flow_kind == "xla":
+                patch.transfer = build_transfer(
+                    padded_to_csr(patch.p12_idx, patch.p12_wt, patch.s2_dense.shape[0]),
+                    self.dtype, dev)
+            mark("transfer_flow")
+        p0v = padded_to_csr(vc.p0_idx, vc.p0_wt, vc.cols0.shape[0])
+        if smooth_kind == "mg3":
+            vc.mg_pack = build_mg_pack(smooth_ops.cols, vc.cols0, p0v, vp.p12_idx,
+                                       vp.p12_wt, int(vp.m2_dense.shape[0]), self.dtype,
+                                       dev)
+            mark("mg_pack_smooth")
+            vc.c1_band = build_c1_band(vc.cols0, device=dev)
+            mark("c1_band_smooth")
+        else:
+            vc.transfer = build_transfer(p0v, self.dtype, dev)
+            if smooth_kind == "xla":
+                vp.transfer = build_transfer(
+                    padded_to_csr(vp.p12_idx, vp.p12_wt, vp.m2_dense.shape[0]),
+                    self.dtype, dev)
+            mark("transfer_smooth")
+        return Hierarchy(coarse=cs, patch=patch, vcoarse=vc, vpatch=vp,
+                         flow_kind=flow_kind, smooth_kind=smooth_kind)
 
     @classmethod
     def from_texture_inputs(cls, mesh_path: str, texture_paths: Tuple[str, str],
@@ -565,9 +641,13 @@ class FlowProblem:
     # -- outer loop (IterativeOptimization, OpticalFlow.cpp:1035-1056) ---
 
     def run(self, verbose: bool = False, checkpoint_dir: Optional[str] = None,
-            resume: bool = True) -> FlowResult:
+            resume: bool = True, debug_dir: Optional[str] = None) -> FlowResult:
         """Coarse-to-fine optimization; optionally checkpoints each level to
-        ``checkpoint_dir`` and resumes from the latest checkpoint there."""
+        ``checkpoint_dir`` and resumes from the latest checkpoint there.
+
+        ``debug_dir`` writes the per-level advected signals as colored PLYs
+        ``resampled.{S,T}.<level>.ply``, the reference's --debug dumps
+        (OpticalFlow.cpp:458-465)."""
         cfg = self.config
         coeffs, tfield = self.coeffs, self.tfield
         s_weight = cfg.scalar_smooth_weight
@@ -586,9 +666,12 @@ class FlowProblem:
         self._warm_x = None
         for level in range(start_level, cfg.levels):
             t0 = time.time()
+            dump = None if debug_dir is None else (
+                lambda res, level=level: self._write_debug_dumps(debug_dir, level,
+                                                                 _to_numpy(res)))
             coeffs, tfield, stats, x = _level_step(
                 self.arrays, coeffs, tfield, s_weight, v_weight, cfg, warm_x=warm_x,
-                hier=self.hier)
+                hier=self.hier, on_resampled=dump)
             if cfg.flow_warm_start:
                 warm_x = x
             if level == start_level and self._exp_exhausted is not None:
@@ -618,6 +701,21 @@ class FlowProblem:
                     level, s_weight, v_weight, warm_x=warm_x)
         self.coeffs, self.tfield = coeffs, tfield
         return FlowResult(_to_numpy(coeffs), _to_numpy(tfield), metrics)
+
+    def _write_debug_dumps(self, debug_dir: str, level: int,
+                           resampled: np.ndarray) -> None:
+        """Per-level resampled.{S,T}.<level>.ply dumps (--debug). 6-channel
+        signals blend as c[j] + c[j+3] (OutputMesh, OpticalFlow.cpp:150-162);
+        binary little-endian, as the reference package writes them."""
+        os.makedirs(debug_dir, exist_ok=True)
+        c = resampled.shape[1] // 2
+        verts = self.vertices if self.vertices is not None else \
+            np.zeros((resampled.shape[0], 3))
+        for s, tag in ((0, "S"), (1, "T")):
+            sig = resampled[:, s * c:(s + 1) * c]
+            colors = sig if c == 3 else sig[:, :3] + sig[:, 3:6]
+            write_ply_colored(os.path.join(debug_dir, f"resampled.{tag}.{level}.ply"),
+                              verts, colors, self.mesh.triangles, fmt="binary_le")
 
     # -- final outputs ---------------------------------------------------
 

@@ -24,7 +24,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from meshopticalflow_tpu_torch.config import FlowConfig, VectorFieldMode
+from meshopticalflow_tpu_torch.config import ConnectionMode, FlowConfig, VectorFieldMode
 from meshopticalflow_tpu_torch.geometry.mesh import HostMesh
 from meshopticalflow_tpu_torch.ops.ell import coo_slot_map, ell_from_scipy, ell_matvec
 
@@ -103,12 +103,18 @@ def finalize_basis(host: BasisHost, dtype=torch.float32, device="cpu") -> BasisD
 
 def build_basis(mesh: HostMesh, config: FlowConfig,
                 device="cpu") -> Tuple[BasisHost, BasisDevice]:
-    """The Whitney basis (the only family this package has)."""
+    """Factory over the three basis families (OpticalFlow.cpp:862-870)."""
+    from meshopticalflow_tpu_torch.models.conformal import build_conformal_basis
+    from meshopticalflow_tpu_torch.models.connection import build_connection_basis
     from meshopticalflow_tpu_torch.models.whitney import build_whitney_basis
 
-    if VectorFieldMode(config.vf_mode) != VectorFieldMode.WHITNEY:
-        raise NotImplementedError("only the Whitney basis is ported")
-    host = build_whitney_basis(mesh)
+    mode = VectorFieldMode(config.vf_mode)
+    if mode == VectorFieldMode.WHITNEY:
+        host = build_whitney_basis(mesh)
+    elif mode == VectorFieldMode.CONFORMAL:
+        host = build_conformal_basis(mesh, divergence_free=config.divergence_free)
+    else:
+        host = build_connection_basis(mesh, ConnectionMode(config.connection_mode))
     dtype = torch.float64 if config.dtype == "float64" else torch.float32
     return host, finalize_basis(host, dtype, device)
 
@@ -191,29 +197,61 @@ def finalize_flow_step(basis: BasisDevice, coeffs, x, dt_vals, rhs):
     return new_coeffs, prolong(basis, new_coeffs)
 
 
-def _make_mg_solver(coarse, patch, d_blocks, scale, vf_smooth_weight, sys_vals,
-                    diag, mg_cheb_k, mg_nu, mg_fine_cheb, mg_coarse_exact):
-    """The per-level flow solver on the hierarchy: the exact banded c1 cycle,
-    or (no exact c1, or its factorization broke down at every shift) the
-    3-level cycle with the dense patch coarsest."""
-    from meshopticalflow_tpu_torch.solvers.mg import MG3Solver
-
+def _make_mg_solver(basis, coarse, patch, d_blocks, scale, vf_smooth_weight, sys_vals,
+                    diag, kind, mg_cheb_k, mg_nu, mg_fine_cheb, mg_coarse_exact,
+                    mg_c1_bf16=False):
+    """The per-level flow solver on the hierarchy of ``kind`` (the
+    reference's models/base.py:366-450; flow/pipeline.py:solver_kinds picks
+    it): "mg3", the Hopper-kernel cycle of solvers/mg.py (the exact banded
+    c1 cycle, or, without the exact c1 or after its factorization broke down
+    at every shift, the 3-level cycle with the dense patch coarsest); "xla",
+    the three-level cycle of solvers/mg3.py; "twolevel", the two-level cycle
+    of solvers/twolevel.py (no patch level read)."""
     c_vals, c_diag = coarse_system_vals(coarse.coarse_dev, d_blocks, scale,
                                         vf_smooth_weight)
-    solver = None
-    if mg_coarse_exact:
-        # the dense patch coarsest is never touched on this path
-        solver = MG3Solver(patch.mg_pack, sys_vals, diag, c_vals, c_diag, None,
-                           cheb_k=mg_cheb_k, nu=mg_nu, c1_band=patch.c1_band,
-                           cheb_fine_deg=mg_fine_cheb)
-        if solver.c1_l_blocks is None:
-            solver = None
-    if solver is None:
+    if kind == "mg3":
+        from meshopticalflow_tpu_torch.solvers.mg import MG3Solver
+
+        solver = None
+        if mg_coarse_exact:
+            # the dense patch coarsest is never touched on this path
+            solver = MG3Solver(patch.mg_pack, sys_vals, diag, c_vals, c_diag, None,
+                               cheb_k=mg_cheb_k, nu=mg_nu, c1_band=patch.c1_band,
+                               cheb_fine_deg=mg_fine_cheb, c1_bf16=mg_c1_bf16)
+            if solver.c1_l_blocks is None:
+                solver = None
+        if solver is None:
+            a2 = patch_system_dense(patch.q2_idx, patch.q2_wt, d_blocks, scale,
+                                    vf_smooth_weight, patch.s2_dense)
+            solver = MG3Solver(patch.mg_pack, sys_vals, diag, c_vals, c_diag, a2,
+                               cheb_k=mg_cheb_k, nu=mg_nu)
+        return solver
+    if kind == "xla":
+        from meshopticalflow_tpu_torch.solvers.mg3 import ThreeLevelSolver
+
         a2 = patch_system_dense(patch.q2_idx, patch.q2_wt, d_blocks, scale,
                                 vf_smooth_weight, patch.s2_dense)
-        solver = MG3Solver(patch.mg_pack, sys_vals, diag, c_vals, c_diag, a2,
-                           cheb_k=mg_cheb_k, nu=mg_nu)
-    return solver
+        return ThreeLevelSolver(basis.ell_cols, sys_vals, diag,
+                                coarse.coarse_dev.ell_cols, c_vals, c_diag,
+                                coarse.transfer, a2, patch.transfer, nu=4)
+    from meshopticalflow_tpu_torch.solvers.twolevel import TwoLevelSolver
+
+    return TwoLevelSolver(basis.ell_cols, sys_vals, diag, coarse.coarse_dev.ell_cols,
+                          c_vals, coarse.transfer)
+
+
+def host_direct_solve(cols: torch.Tensor, vals: torch.Tensor,
+                      rhs: torch.Tensor) -> torch.Tensor:
+    """x = A^{-1} rhs by scipy's sparse direct solve of the float64 system on
+    the host, the reference's correctness oracle (models/base.py:499-511)."""
+    import scipy.sparse.linalg as spla
+
+    n, w = cols.shape
+    mat = sp.csc_matrix((vals.detach().to("cpu", torch.float64).numpy().ravel(),
+                         (np.repeat(np.arange(n), w), cols.cpu().numpy().ravel())),
+                        shape=(n, n))
+    x = spla.spsolve(mat, rhs.detach().to("cpu", torch.float64).numpy())
+    return torch.as_tensor(x).to(device=rhs.device, dtype=rhs.dtype)
 
 
 def update_optical_flow(
@@ -225,12 +263,15 @@ def update_optical_flow(
     cg_tol: float = 1e-7,
     cg_max_iters: int = 2000,
     cg_chunk: int = 128,
+    use_host_cholesky: bool = False,
     refine: bool = True,
     x0: Optional[torch.Tensor] = None,
     coarse=None,       # models.coarse.CoarseSpace: the geometric hierarchy
-    patch=None,        # models.coarse.PatchLevel with its MG pack and c1 band
+    patch=None,        # models.coarse.PatchLevel (the 3-level cycles)
+    mg_kind: str = "mg3",    # the hierarchy's flow solver (_make_mg_solver)
     mg_cheb_k: int = 1,
     mg_coarse_exact: bool = False,
+    mg_c1_bf16: bool = False,
     mg_nu: int = 2,
     mg_fine_cheb: int = 0,
     refine_tol: float = 3e-9,
@@ -240,29 +281,33 @@ def update_optical_flow(
     """One Gauss-Newton flow step (VectorField::UpdateOpticalFlow,
     VectorField.h:46-104): system assembly, the solve, step finalize.
 
-    With the hierarchy (``coarse`` and ``patch``) the solve is the multigrid
-    PCG (solvers/mg.py) inside the adaptive refinement loop, with the inner
-    call the reference makes (models/base.py:606-611); without it, Jacobi-PCG
-    inside refinement when ``refine``. A multigrid solve fills
+    ``use_host_cholesky`` solves on the host (``host_direct_solve``, zero
+    iterations). With the hierarchy (``coarse``) the solve is a multigrid
+    PCG (``_make_mg_solver``) inside the adaptive refinement loop, with the
+    inner call the reference makes (models/base.py:606-611); without it,
+    Jacobi-PCG inside refinement when ``refine``. A multigrid solve fills
     ``solve_info`` (when given) with the solver's streamed GB per iteration
-    and its c1 factorization seconds.
+    and its coarse factorization seconds.
 
     Returns (new_coeffs, tfield, solve_stats, x) where x is the solved
     direction (the next level's warm start when that is enabled)."""
-    from meshopticalflow_tpu_torch.solvers.cg import ell_pcg
+    from meshopticalflow_tpu_torch.solvers.cg import CGStats, ell_pcg
     from meshopticalflow_tpu_torch.solvers.refine import ell_solve_refined, refine_loop
 
     vf_smooth_weight = torch.as_tensor(vf_smooth_weight, dtype=coeffs.dtype,
                                        device=coeffs.device)
     sys_vals, dt_vals, rhs, diag, scale = build_flow_system(basis, d_blocks, rhs_t,
                                                             vf_smooth_weight)
-    if coarse is not None:
+    if use_host_cholesky:
+        x = host_direct_solve(basis.ell_cols, sys_vals, rhs)
+        stats = CGStats(0, 0.0)
+    elif coarse is not None:
         from meshopticalflow_tpu_torch.solvers.mg import BandedBreakdownError
 
         def build(exact):
-            return _make_mg_solver(coarse, patch, d_blocks, scale, vf_smooth_weight,
-                                   sys_vals, diag, mg_cheb_k, mg_nu, mg_fine_cheb,
-                                   exact)
+            return _make_mg_solver(basis, coarse, patch, d_blocks, scale,
+                                   vf_smooth_weight, sys_vals, diag, mg_kind, mg_cheb_k,
+                                   mg_nu, mg_fine_cheb, exact, mg_c1_bf16)
 
         def run(solver):
             if not refine:

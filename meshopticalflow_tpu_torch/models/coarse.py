@@ -3,18 +3,27 @@
 A jax-free copy of meshopticalflow_tpu/models/coarse.py (tests/test_torch_host.py
 pins the source). The host arithmetic is unchanged; the handles hold torch
 tensors on an explicit device where the reference holds (lazily uploaded)
-jax arrays. Only the Whitney branch of ``build_coarse_space`` exists: the
-port has no other basis (config.require_supported).
+jax arrays, plus the solvers' static operators, built once per problem
+(flow/pipeline.py attach_coarse_space).
 
 The fine mesh comes from midpoint subdivision of the input mesh;
 subdivide_tracked records, for every fine triangle, its ROOT coarse triangle
-and the barycentric coordinates of its corners there. The coarse Whitney
-1-form is affine, so its integral along a straight fine edge is exact by the
-midpoint rule: P0[e, k] is the coarse form W_k at the fine edge midpoint
-dotted with the fine edge vector. The composed prolongation Q = P_fine @ P0
-has the per-triangle fixed-fan-in structure of a basis, so the coarse
-Galerkin system A0 = P0^T A P0 = Q^T D Q + lambda * (P0^T S P0) is assembled
-on the device by the same machinery as the fine one (models.base).
+and the barycentric coordinates of its corners there. From that, a coarse
+space for each vector-field basis follows in closed form:
+
+  * Whitney: the coarse Whitney 1-form is affine, so its integral along a
+    straight fine edge is exact by the midpoint rule: P0[e, k] is the coarse
+    form W_k at the fine edge midpoint dotted with the fine edge vector;
+  * Conformal: hat interpolation of the potentials at fine vertices (one
+    half of the basis with ``divergence_free``);
+  * Connection: the chart Jacobian J_t = [b1-b0 | b2-b0] of the fine
+    triangle inside its parent maps coarse chart vectors to fine chart
+    vectors by J_t^{-1}.
+
+The composed prolongation Q = P_fine @ P0 has the per-triangle
+fixed-fan-in structure of a basis, so the coarse Galerkin system
+A0 = P0^T A P0 = Q^T D Q + lambda * (P0^T S P0) is assembled on the device
+by the same machinery as the fine one (models.base).
 """
 
 from __future__ import annotations
@@ -48,6 +57,8 @@ class CoarseSpace:
     p0: sp.csr_matrix               # (n_fine, n_coarse) coefficient transfer
     p0_idx: np.ndarray              # (n_fine, K0) padded gather form of p0
     p0_wt: np.ndarray
+    # problem-lifetime solver handle (flow/pipeline.py attach_coarse_space):
+    transfer: object = None         # solvers.twolevel.Transfer of p0
 
 
 def _hat(bary: np.ndarray) -> np.ndarray:
@@ -64,8 +75,7 @@ def build_coarse_space(
     bary: np.ndarray,      # (T_f, 3, 2)
     device="cpu",
 ) -> CoarseSpace:
-    if VectorFieldMode(config.vf_mode) != VectorFieldMode.WHITNEY:
-        raise NotImplementedError("only the Whitney coarse space is ported")
+    mode = VectorFieldMode(config.vf_mode)
     t_f = fine_mesh.n_triangles
     coarse_host_native, _ = build_basis(coarse_mesh, config)
     n_c = coarse_host_native.n_coeffs
@@ -73,28 +83,60 @@ def build_coarse_space(
     parent = np.asarray(parent, np.int64)
     bary = np.asarray(bary, np.float64)
 
-    from meshopticalflow_tpu_torch.models.whitney import edge_reduction as er
-    red_c, sign_c, _ = er(coarse_mesh.opp)
-    red_f, sign_f, expanded = er(fine_mesh.opp)
-    t = expanded // 3
-    j = expanded % 3
-    tau = parent[t]
-    p1 = bary[t, (j + 1) % 3]
-    p2 = bary[t, (j + 2) % 3]
-    m = (p1 + p2) / 2.0
-    d = p2 - p1
-    lam = _hat(m)
-    gd = d @ HAT_GRADS.T
-    rows, cols, vals = [], [], []
-    for k in range(3):
-        k1, k2 = (k + 1) % 3, (k + 2) % 3
-        w = lam[:, k1] * gd[:, k2] - lam[:, k2] * gd[:, k1]
-        rows.append(np.arange(n_f))
-        cols.append(red_c[3 * tau + k])
-        vals.append(w * sign_c[3 * tau + k])
-    p0 = sp.coo_matrix((np.concatenate(vals),
-                        (np.concatenate(rows), np.concatenate(cols))),
-                       shape=(n_f, n_c)).tocsr()
+    if mode == VectorFieldMode.WHITNEY:
+        from meshopticalflow_tpu_torch.models.whitney import edge_reduction as er
+        red_c, sign_c, _ = er(coarse_mesh.opp)
+        red_f, sign_f, expanded = er(fine_mesh.opp)
+        t = expanded // 3
+        j = expanded % 3
+        tau = parent[t]
+        p1 = bary[t, (j + 1) % 3]
+        p2 = bary[t, (j + 2) % 3]
+        m = (p1 + p2) / 2.0
+        d = p2 - p1
+        lam = _hat(m)
+        gd = d @ HAT_GRADS.T
+        rows, cols, vals = [], [], []
+        for k in range(3):
+            k1, k2 = (k + 1) % 3, (k + 2) % 3
+            w = lam[:, k1] * gd[:, k2] - lam[:, k2] * gd[:, k1]
+            rows.append(np.arange(n_f))
+            cols.append(red_c[3 * tau + k])
+            vals.append(w * sign_c[3 * tau + k])
+        p0 = sp.coo_matrix((np.concatenate(vals),
+                            (np.concatenate(rows), np.concatenate(cols))),
+                           shape=(n_f, n_c)).tocsr()
+    elif mode == VectorFieldMode.CONFORMAL:
+        v_f = fine_mesh.n_vertices
+        v_c = coarse_mesh.n_vertices
+        # One (triangle, corner) witness per fine vertex.
+        first_t = np.full(v_f, -1, np.int64)
+        first_c = np.zeros(v_f, np.int64)
+        tri = fine_mesh.triangles.astype(np.int64)
+        for c in range(2, -1, -1):
+            first_t[tri[:, c]] = np.arange(t_f)
+            first_c[tri[:, c]] = c
+        assert (first_t >= 0).all()
+        b_v = bary[first_t, first_c]               # (V_f, 2)
+        lam = _hat(b_v)                            # (V_f, 3)
+        tau = parent[first_t]
+        ctri = coarse_mesh.triangles.astype(np.int64)[tau]   # (V_f, 3)
+        rows = np.repeat(np.arange(v_f), 3)
+        cols = ctri.ravel()
+        vals = lam.ravel()
+        half = sp.coo_matrix((vals, (rows, cols)), shape=(v_f, v_c)).tocsr()
+        # --divFree keeps only the rotated-gradient half; hat interpolation
+        # of the potentials transfers identically on the half-basis.
+        p0 = half if config.divergence_free else sp.block_diag([half, half],
+                                                               format="csr")
+    else:  # CONNECTION
+        jac = np.stack([bary[:, 1] - bary[:, 0], bary[:, 2] - bary[:, 0]], axis=-1)
+        jac_inv = np.linalg.inv(jac)               # (T_f, 2, 2)
+        rows = (2 * np.arange(t_f, dtype=np.int64)[:, None, None]
+                + np.arange(2)[None, :, None] + np.zeros((1, 1, 2), np.int64)).ravel()
+        cols = (2 * parent[:, None, None] + np.zeros((1, 2, 1), np.int64)
+                + np.arange(2)[None, None, :]).ravel()
+        p0 = sp.coo_matrix((jac_inv.ravel(), (rows, cols)), shape=(n_f, n_c)).tocsr()
 
     # Galerkin coarse smoothness.
     s0 = (p0.T @ fine_host.smooth @ p0).tocsr()
@@ -157,6 +199,7 @@ class VertexCoarse:
     # problem-lifetime solver handles (flow/pipeline.py attach_coarse_space):
     mg_pack: object = None    # solvers.mg.MGPack
     c1_band: object = None    # solvers.mg.BandedC1
+    transfer: object = None   # solvers.twolevel.Transfer of the hat interpolation
 
 
 def build_vertex_coarse(config, fine_mesh: HostMesh, coarse_mesh: HostMesh,
@@ -214,8 +257,9 @@ def build_vertex_coarse(config, fine_mesh: HostMesh, coarse_mesh: HostMesh,
 
 @dataclasses.dataclass
 class PatchLevel:
-    """Third (densest) multigrid level for the flow basis (models/patches.py).
-    Only the 3-level fallback cycle (after a banded c1 breakdown) reads it."""
+    """Third (densest) multigrid level for the flow basis (models/patches.py),
+    read by the three-level cycles: solvers/mg3.py, and the fallback of
+    solvers/mg.py after a banded c1 breakdown. Whitney only."""
 
     q2_idx: torch.Tensor      # (T_f, K2) int64 composed fine-triangle gather
     q2_wt: torch.Tensor       # (T_f, 2, K2)
@@ -225,6 +269,7 @@ class PatchLevel:
     # problem-lifetime solver handles (flow/pipeline.py attach_coarse_space):
     mg_pack: object = None    # solvers.mg.MGPack
     c1_band: object = None    # solvers.mg.BandedC1
+    transfer: object = None   # solvers.twolevel.Transfer of p12 (solvers/mg3.py)
 
 
 @dataclasses.dataclass
@@ -235,6 +280,7 @@ class VertexPatchLevel:
     k2_dense: torch.Tensor
     p12_idx: np.ndarray
     p12_wt: np.ndarray
+    transfer: object = None   # solvers.twolevel.Transfer of p12 (solvers/mg3.py)
 
 
 def _csr_to_padded(p_csr):

@@ -169,21 +169,27 @@ def build_solve_panels(l_blocks: torch.Tensor, k: int):
     return dinv, panel[:, s:, :].contiguous()
 
 
+def _widen(panel: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A panel in the rhs dtype (panels may be stored in bfloat16)."""
+    return panel if panel.dtype == dtype else panel.to(dtype)
+
+
 def panel_lower_solve(dinv: torch.Tensor, pbelow: torch.Tensor,
                       rhs_panels: torch.Tensor) -> torch.Tensor:
     """y from L y = rhs on the panel layout; rhs_panels (mp, S, c)."""
     mp, s, _ = dinv.shape
     bw = pbelow.shape[1]
     c = rhs_panels.shape[-1]
+    dt = rhs_panels.dtype
     y = torch.empty_like(rhs_panels)
-    acc = torch.zeros((bw, c), dtype=rhs_panels.dtype, device=rhs_panels.device)
+    acc = torch.zeros((bw, c), dtype=dt, device=rhs_panels.device)
     for i in range(mp):
-        torch.matmul(dinv[i], rhs_panels[i] - acc[:s], out=y[i])
+        torch.matmul(_widen(dinv[i], dt), rhs_panels[i] - acc[:s], out=y[i])
         if bw == s:
-            acc = pbelow[i] @ y[i]
+            acc = _widen(pbelow[i], dt) @ y[i]
         else:
             acc = torch.cat([acc[s:], torch.zeros_like(acc[:s])], dim=0) \
-                + pbelow[i] @ y[i]
+                + _widen(pbelow[i], dt) @ y[i]
     return y
 
 
@@ -193,11 +199,12 @@ def panel_upper_solve(dinv: torch.Tensor, pbelow: torch.Tensor,
     mp, s, _ = dinv.shape
     bw = pbelow.shape[1]
     c = y_panels.shape[-1]
+    dt = y_panels.dtype
     x = torch.empty_like(y_panels)
-    xwin = torch.zeros((bw, c), dtype=y_panels.dtype, device=y_panels.device)
+    xwin = torch.zeros((bw, c), dtype=dt, device=y_panels.device)
     for i in range(mp - 1, -1, -1):
-        t = y_panels[i] - pbelow[i].T @ xwin
-        torch.matmul(dinv[i].T, t, out=x[i])
+        t = y_panels[i] - _widen(pbelow[i], dt).T @ xwin
+        torch.matmul(_widen(dinv[i], dt).T, t, out=x[i])
         xwin = x[i] if bw == s else torch.cat([x[i], xwin[: bw - s]], dim=0)
     return x
 

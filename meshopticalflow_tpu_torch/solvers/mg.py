@@ -240,7 +240,8 @@ def build_c1_band(c1_ell_cols, nb: int = 128, device="cpu") -> BandedC1:
 
 
 def _inner1_exact(dinv, pbelow, band: BandedC1, r1: torch.Tensor) -> torch.Tensor:
-    """z1 = A1^{-1} r1 through the panelized banded factor; r1 (n1,) or (n1, C)."""
+    """z1 = A1^{-1} r1 through the panelized banded factor; r1 (n1,) or (n1, C).
+    Panels stored in bfloat16 are widened per panel to r1's dtype."""
     flat = r1[:, None] if r1.dim() == 1 else r1
     c = flat.shape[1]
     mp, s, _ = dinv.shape
@@ -255,10 +256,16 @@ def _inner1_exact(dinv, pbelow, band: BandedC1, r1: torch.Tensor) -> torch.Tenso
 
 
 def _factor_c1_panels(c1_band: BandedC1, c1_ell_vals, c1_diag,
-                      defer_check: bool = False):
+                      defer_check: bool = False, bf16: bool = False):
     """Factor the c1 system on its band layout and reblock into solve
     panels. Returns (dinv, pbelow, ok_dev); (None, None, None) on total
     breakdown (the caller falls back to the 3-level cycle).
+
+    ``bf16`` stores the panels in bfloat16 (``mg_c1_bf16``, the reference's
+    pallas_mg.py:383-418): they are the largest per-iteration stream of the
+    exact-c1 cycle, and as a preconditioner component a coarse solve of
+    ~1e-2 accuracy still serves; the sweeps compute in the residual's dtype
+    from them (``_inner1_exact``).
 
     ``defer_check=True`` returns the shift-0 attempt at once with its ok
     flag unread on the device; the solver reads it with its first chunk's
@@ -269,7 +276,10 @@ def _factor_c1_panels(c1_band: BandedC1, c1_ell_vals, c1_diag,
 
     def panels(l_blocks):
         k = max(1, min(8, c1_band.bw // c1_band.nb))
-        return build_solve_panels(l_blocks, k)
+        dinv, pbelow = build_solve_panels(l_blocks, k)
+        if bf16:
+            return dinv.to(torch.bfloat16), pbelow.to(torch.bfloat16)
+        return dinv, pbelow
 
     dmax = None
     for rel in (0.0, 1e-6, 1e-4, 1e-2):
@@ -295,8 +305,8 @@ class BandedBreakdownError(RuntimeError):
 def _refactor_c1_checked(solver) -> None:
     """Escalated re-factorization after a deferred shift-0 failure; swaps the
     shifted factor into the solver or raises BandedBreakdownError."""
-    band, vals, diag = solver._c1_factor_args
-    dinv, pbelow, _ = _factor_c1_panels(band, vals, diag)
+    band, vals, diag, bf16 = solver._c1_factor_args
+    dinv, pbelow, _ = _factor_c1_panels(band, vals, diag, bf16=bf16)
     if dinv is None:
         solver.c1_dinv = None
         solver.c1_pbelow = None
@@ -504,7 +514,8 @@ class _MGBase:
     cheb_fine_deg = 0   # Chebyshev fine smoother degree (0: damped Jacobi)
 
     def __init__(self, pack: MGPack, fine_ell_vals, fine_diag, c1_ell_vals, c1_diag,
-                 a2_dense, omega: float, nu: int, c1_band: Optional[BandedC1]):
+                 a2_dense, omega: float, nu: int, c1_band: Optional[BandedC1],
+                 c1_bf16: bool = False):
         wd = fine_ell_vals.dtype
         if wd not in (torch.float32, torch.float64):
             raise TypeError(f"working dtype {wd}: float32 or float64")
@@ -519,8 +530,9 @@ class _MGBase:
         if c1_band is not None:
             t0 = time.time()
             self.c1_dinv, self.c1_pbelow, self._c1_ok_dev = _factor_c1_panels(
-                c1_band, c1_ell_vals.to(wd), c1_diag.to(wd), defer_check=True)
-            self._c1_factor_args = (c1_band, c1_ell_vals.to(wd), c1_diag.to(wd))
+                c1_band, c1_ell_vals.to(wd), c1_diag.to(wd), defer_check=True,
+                bf16=c1_bf16)
+            self._c1_factor_args = (c1_band, c1_ell_vals.to(wd), c1_diag.to(wd), c1_bf16)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             self.factor_seconds = time.time() - t0
@@ -657,9 +669,10 @@ class MG3Solver(_MGBase):
 
     def __init__(self, pack: MGPack, fine_ell_vals, fine_diag, c1_ell_vals, c1_diag,
                  a2_dense, omega: float = 0.7, nu: int = 2, cheb_k: int = 1,
-                 c1_band: Optional[BandedC1] = None, cheb_fine_deg: int = 0):
+                 c1_band: Optional[BandedC1] = None, cheb_fine_deg: int = 0,
+                 c1_bf16: bool = False):
         super().__init__(pack, fine_ell_vals, fine_diag, c1_ell_vals, c1_diag,
-                         a2_dense, omega, nu, c1_band)
+                         a2_dense, omega, nu, c1_band, c1_bf16)
         self.cheb_k = int(cheb_k)
         self.cheb_fine_deg = int(cheb_fine_deg)
         self._fine_bounds = None
@@ -703,9 +716,9 @@ class MG3MultiSolver(_MGBase):
 
     def __init__(self, pack: MGPack, fine_ell_vals, fine_diag, c1_ell_vals, c1_diag,
                  a2_dense, omega: float = 0.7, nu: int = 2,
-                 c1_band: Optional[BandedC1] = None):
+                 c1_band: Optional[BandedC1] = None, c1_bf16: bool = False):
         super().__init__(pack, fine_ell_vals, fine_diag, c1_ell_vals, c1_diag,
-                         a2_dense, omega, nu, c1_band)
+                         a2_dense, omega, nu, c1_band, c1_bf16)
         self.f_invd = self.f_invd[:, None]
         self.c1_invd = self.c1_invd[:, None]
 

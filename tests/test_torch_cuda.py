@@ -156,6 +156,35 @@ def test_cuda_rectangular_matches_plain(dtype, n_out, n_in, w, c):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_group_kernel_square_w20(dtype):
+    """The conformal flow operator's form: square, 20 slots a row (past
+    SLAB_MAX_WIDTH, so lane groups), at the full-size row count."""
+    _require_card()
+    assert spmv.variant_of(20) == "group"
+    cols, vals, x = _operands(393220, 20, 0, dtype)
+    _check_against_plain(cols, vals, x, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_out,n_in,w,c", [
+    (786432, 49152, 2, 0), (49152, 786432, 32, 0),      # connection P0, P0^T
+    (393220, 24580, 3, 0), (24580, 393220, 55, 0),      # conformal P0, P0^T
+    (196610, 12290, 3, 6), (12290, 196610, 55, 6)])     # vertex P0, P0^T
+def test_cuda_twolevel_transfers_f32(n_out, n_in, w, c):
+    """The two-level cycle's transfers in float32 values (its working dtype)."""
+    _require_card()
+    rng = np.random.default_rng(n_out + w)
+    dev = torch.device("cuda")
+    cols = torch.from_numpy(rng.integers(0, n_in, (n_out, w))).to(torch.int32).to(dev)
+    spmv.check_columns(cols, n_in)
+    vals = torch.from_numpy(rng.standard_normal((n_out, w))).to(torch.float32).to(dev)
+    x = torch.from_numpy(rng.standard_normal((n_in, c) if c else n_in)).to(
+        torch.float32).to(dev)
+    _check_against_plain(cols, vals, x, c)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("name", [p[0] for p in probes.PROBES])
 def test_cuda_probe_matches_plain_and_script(name):
     _require_card()

@@ -179,16 +179,22 @@ def test_config_matches_reference_fields():
     assert a == b
 
 
+UNPORTED = (dict(flow_backend="mf"), dict(flow_backend="halo"), dict(dtype="bfloat16"))
+
+
 @pytest.mark.parametrize("kwargs", [
     dict(), dict(vf_mode=1), dict(flow_backend="pallas"), dict(use_host_cholesky=True),
     dict(divergence_free=True), dict(connection_mode=1),
+    dict(flow_backend="mf"), dict(flow_backend="halo"), dict(vf_mode=2, connection_mode=2),
+    dict(flow_backend="xla"), dict(dtype="bfloat16"),
 ])
 def test_config_refuses_unported_paths(kwargs):
-    """The defaults (multigrid on, as the CLI runs them) and use_multigrid=False
-    are accepted; every path the port lacks is refused with either."""
+    """With multigrid on (as the CLI runs) and off, every basis and solver
+    the port has is accepted; the multifrontal ("mf") and sharded ("halo")
+    flow backends and dtypes other than float32/float64 are refused."""
     for mg_on in (True, False):
         cfg = t_config.FlowConfig(use_multigrid=mg_on, **kwargs)
-        if kwargs:
+        if kwargs in UNPORTED:
             with pytest.raises(NotImplementedError):
                 t_config.require_supported(cfg)
         else:
@@ -197,8 +203,8 @@ def test_config_refuses_unported_paths(kwargs):
 
 @pytest.mark.parametrize("kwargs", [dict(mg_c1_bf16=True), dict(flow_mg_levels=2)])
 def test_config_refuses_unported_multigrid_options(kwargs):
-    with pytest.raises(NotImplementedError):
-        t_config.require_supported(t_config.FlowConfig(**kwargs))
+    """Both multigrid options are ported: accepted with multigrid on and off."""
+    t_config.require_supported(t_config.FlowConfig(**kwargs))
     t_config.require_supported(t_config.FlowConfig(use_multigrid=False, **kwargs))
 
 
@@ -374,6 +380,8 @@ HOST_COPIES = {
     "ops.elements": (None, "71f36243538ef108"),
     "ops.assemble": (None, "cd5bd5a3c287da89"),
     "models.whitney": (None, "f9a18ce7870648fa"),
+    "models.conformal": (None, "ca6f7ec5b02f6f24"),
+    "models.connection": (None, "0d70b3a28068ddf4"),
     "ops.ell": (("HostEll", "ell_from_scipy", "coo_slot_map"), "f3334ac3c9490bc0"),
     "models.base": (("BasisHost", "finalize_basis"), "9d030c633e89ba46"),
     "flow.signal": (("make_smoothing_operators",), "0c929c8905ae3dd2"),

@@ -260,8 +260,8 @@ def test_flow_step_survives_banded_breakdown(monkeypatch):
 
     real = mg._factor_c1_panels
 
-    def broken(band, vals, diag, defer_check=False):
-        return real(band, -torch.ones_like(vals), -torch.ones_like(diag), defer_check)
+    def broken(band, vals, diag, defer_check=False, bf16=False):
+        return real(band, -torch.ones_like(vals), -torch.ones_like(diag), defer_check, bf16)
 
     monkeypatch.setattr(mg, "_factor_c1_panels", broken)
     fell_back = t_base.update_optical_flow(prob.arrays.basis, coeffs, d_blocks, rhs_t,
