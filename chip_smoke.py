@@ -17,7 +17,11 @@ any failure raises, so the run exits non-zero and prints no final ok line.
      three modes, divFree), ref_cube256.png through the CLI default
      (multigrid), and the same cube with ``use_multigrid=False``,
      ``--flowBackend xla``, ``flow_mg_levels=2`` and ``mg_c1_bf16``, so every
-     solver stays gated;
+     solver stays gated; the TrackSequence CLI on a.ply b.ply with
+     ``--composed`` (halfway_000.ply against ref_vertex.ply) and on the 256^2
+     cube (halfway_000.png against ref_cube256.png); the spectrum (block
+     Lanczos, the CUDA path) of the sphere subdivided twice against scipy's
+     ARPACK, rtol 1e-5;
   5. the Jacobi-PCG path at full size (``use_multigrid=False``):
      tests/golden/cube.ply at the CLI's default edge length (393,216
      triangles) with the 256^2 golden textures upsampled 8x to 2048^2;
@@ -30,25 +34,40 @@ any failure raises, so the run exits non-zero and prints no final ok line.
      so the flow and smoothing solves are the two-level cycle, with a host
      coarse solve in every iteration; then the split of one two-level
      iteration (device work, the host round trip);
+  6c. tracking at full width: mA/mB upsampled to 2048^2 baked onto the cube
+     by the SampleTextureToVertices CLI at its default edge length (393,216
+     triangles, 196,610 vertices), then the vertex TrackSequence CLI over
+     frames A, B, A with ``--composed`` at float32 CLI defaults: per pair
+     init and level seconds, flow iterations and alignment error, the
+     composed resample's seconds, SpMV launches per form;
+  6d. the spectrum at demo scale: the Spectrum CLI (k = 20, float32, block
+     Lanczos on the banded shift-invert solve) on the cube at --eLength
+     0.018 (49,152 triangles, 73,728 Whitney unknowns): seconds by stage,
+     restarts, inner trip count, sigma escalations, launches per form, one
+     block-Lanczos step's device time against its issued time, and the
+     eigenvalues against scipy's eigsh (sigma 1e-8) on the same host
+     operators (max relative error <= 1e-3);
   7. each SpMV kernel against its plain version at the operators of those
      problems (the f32 / bf16 / f64 flow and smoothing operators, the c1
      operator, the rectangular transfers P0 and P0^T of both hierarchies;
-     the conformal and connection flow operators and their f32 transfers),
+     the conformal and connection flow operators and their f32 transfers;
+     the spectrum's S + sigma M at 1, 4 and 8 columns),
      with its launch plan, warm and cold-L2 times, the warm time with the
      scattered gather of x taken out (every slot of a row reading one x
      element), the byte bound (stored non-zeros only), cuSPARSE's time on
      the same operator, and the launches of its form (wrapper, value type,
      square or rectangular, slab or lane-group variant) in the draws of
-     phases 5, 6 and 6b; then the split of one
+     phases 5, 6, 6b, 6c and 6d; then the split of one
      multigrid PCG iteration, each part timed alone (the sweeps' share of
      the levels is timed inside phase 6's run);
   8. the result lines.
 
-Every phase that drives a path (3, 5, 6, 6b) sets the launch counts to 0
-just before it and reads them just after; phases 5, 6 and 6b print and
+Every phase that drives a path (3, 5, 6, 6b, 6c, 6d) sets the launch counts
+to 0 just before it and reads them just after; phases 5 to 6d print and
 record the SpMV launches per form. The second-to-last line is a JSON record
 of the nine kernels; the last line is {"ok": true, "device": {...}}. Scratch
-files and the full records go to chiprun_out/chip_smoke/.
+files and the full records go to chiprun_out/chip_smoke/ (kernels.json,
+main_path_{jacobi,multigrid,conformal,connection,tracking,spectrum}.json).
 """
 
 from __future__ import annotations
@@ -60,6 +79,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -78,8 +98,11 @@ MG_ROOT_FRACTION = 0.024       # root edge length: 24,576 triangles
 DEVICE = "cuda"
 
 
+T_START = time.time()
+
+
 def phase(n, msg: str) -> None:
-    print(f"[phase {n}] {msg}", flush=True)
+    print(f"[phase {n} +{time.time() - T_START:.1f}s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -375,6 +398,97 @@ def _texture_scores(path):
             float((np.abs(a - b) <= 1).all(-1).mean()))
 
 
+def check_tracker_goldens(spmv, cpu_blend):
+    """Phase 4: the TrackSequence CLI in float64 on the card. Vertex mode on
+    a.ply b.ply with --composed: halfway_000.ply against ref_vertex.ply at
+    the vertex golden's gate (off by one only at the CPU blend's knife
+    edges) and a finite composed resample; texture mode on the 256^2 cube:
+    halfway_000.png at the ref_cube256 thresholds."""
+    from meshopticalflow_tpu_torch.apps.track_sequence import main as track
+    from meshopticalflow_tpu_torch.io.ply import read_triangle_mesh
+
+    a, b = os.path.join(GOLD, "a.ply"), os.path.join(GOLD, "b.ply")
+    out = {}
+    spmv.reset_counts()
+    vdir = os.path.join(WORK, "track_vertex")
+    if track(["--in", a, b, "--outDir", vdir, "--composed", "--dtype", "float64",
+              "--device", DEVICE]) != 0:
+        raise RuntimeError("vertex tracker CLI failed")
+    counts = spmv.counts()
+    ref = read_triangle_mesh(os.path.join(GOLD, "ref_vertex.ply")).colors.astype(int)
+    ours = read_triangle_mesh(os.path.join(vdir, "halfway_000.ply")).colors.astype(int)
+    knife = np.abs(cpu_blend - np.round(cpu_blend)) < 1e-9
+    off = ours != ref
+    composed = read_triangle_mesh(os.path.join(vdir, "composed_resampled.ply")).colors
+    if (np.abs(ours - ref) > 1).any() or (off & ~knife).any():
+        raise RuntimeError("tracker halfway_000.ply differs from ref_vertex.ply off the "
+                           "knife edges")
+    if composed.shape != ref.shape or not np.isfinite(composed).all():
+        raise RuntimeError(f"composed resample: {composed.shape}, finite "
+                           f"{np.isfinite(composed).all()}")
+    if counts["spmv_ell"] == 0 or counts["spmv_ell_multi"] == 0 or counts["plain_on_cuda"]:
+        raise RuntimeError(f"vertex tracker did not go through the kernels: {counts}")
+    out["vertex"] = dict(exact=int((~off).sum()), off_at_knife_edges=int(off.sum()),
+                         launches=counts)
+    phase(4, f"TrackSequence a b --composed: halfway_000.ply {int((~off).sum())}/{off.size} "
+             f"channels exact, {int(off.sum())} off by one at knife edges; composed "
+             f"resample finite; launches {counts}")
+    spmv.reset_counts()
+    tdir = os.path.join(WORK, "track_texture")
+    t0 = time.time()
+    if track(["--mesh", os.path.join(GOLD, "cube.ply"), "--in", os.path.join(GOLD, "mA.png"),
+              os.path.join(GOLD, "mB.png"), "--outDir", tdir, "--eLength", "0.06",
+              "--dtype", "float64", "--device", DEVICE]) != 0:
+        raise RuntimeError("texture tracker CLI failed")
+    secs = time.time() - t0
+    counts = spmv.counts()
+    rmse, exact, within1 = _texture_scores(os.path.join(tdir, "halfway_000.png"))
+    out["texture"] = dict(rmse=rmse, exact=exact, within1=within1, seconds=secs,
+                          launches=counts)
+    phase(4, f"TrackSequence cube256 mA mB: halfway_000.png rmse {rmse:.3f} (< 2.2), exact "
+             f"{exact:.4f} (> 0.97), within1 {within1:.4f} (> 0.995), {secs:.1f} s")
+    if not (rmse < 2.2 and exact > 0.97 and within1 > 0.995):
+        raise RuntimeError("texture tracker outside the ref_cube256 thresholds on the card")
+    if counts["spmv_ell"] == 0 or counts["spmv_ell_multi"] == 0 or counts["plain_on_cuda"]:
+        raise RuntimeError(f"texture tracker did not go through the kernels: {counts}")
+    return out
+
+
+def check_spectrum_golden(spmv):
+    """Phase 4: compute_spectrum's CUDA path (block Lanczos on the banded
+    shift-invert solve) in float64 on the sphere subdivided twice, k = 6,
+    against ARPACK at rtol 1e-5."""
+    import torch
+    from meshopticalflow_tpu_torch.config import FlowConfig
+    from meshopticalflow_tpu_torch.geometry.mesh import build_mesh
+    from meshopticalflow_tpu_torch.models.base import build_basis
+    from meshopticalflow_tpu_torch.ops.assemble import vector_field_mass_blocks
+    from meshopticalflow_tpu_torch.solvers.lanczos import compute_spectrum
+    from meshopticalflow_tpu_torch.utils.testing import arpack_spectrum, octa_sphere
+
+    tris, verts = octa_sphere(2)
+    mesh = build_mesh(tris, vertices=verts)
+    host, basis = build_basis(mesh, FlowConfig(dtype="float64"), DEVICE)
+    mass = torch.as_tensor(vector_field_mass_blocks(mesh)).to(DEVICE)
+    spmv.reset_counts()
+    stats = {}
+    res = compute_spectrum(basis, mass, 6, cg_tol=1e-12, max_lanczos=min(host.n_coeffs, 600),
+                           host_stepped=True, stats=stats)
+    counts = spmv.counts()
+    oracle = arpack_spectrum(host, mesh, 6)
+    rel = float(np.max(np.abs(res.eigenvalues - oracle) / np.abs(oracle)))
+    phase(4, f"spectrum, sphere subdivided twice ({host.n_coeffs} unknowns), k 6, float64: "
+             f"max rel err vs ARPACK {rel:.3e} (rtol 1e-5); restarts "
+             f"{stats['restart_count']}, inner_iters {stats['packs'][-1]['inner_iters']}; "
+             f"launches {counts}")
+    if not rel <= 1e-5:
+        raise RuntimeError(f"spectrum golden: max rel err {rel:.3e} > 1e-5")
+    if counts["spmv_ell_multi"] == 0 or counts["plain_on_cuda"]:
+        raise RuntimeError(f"spectrum did not go through the kernels: {counts}")
+    return dict(max_rel_err=rel, eigenvalues=res.eigenvalues.tolist(), oracle=oracle.tolist(),
+                launches=counts, stats=stats)
+
+
 def check_goldens(spmv):
     """Phase 4: the vertex and 256^2 texture goldens in float64 on the card.
 
@@ -411,7 +525,8 @@ def check_goldens(spmv):
     argv = ["--mesh", os.path.join(GOLD, "cube.ply"), "--in", os.path.join(GOLD, "mA.png"),
             os.path.join(GOLD, "mB.png"), "--out", "", "--eLength", "0.06",
             "--dtype", "float64", "--device", DEVICE]
-    out = {"vertex": check_vertex_goldens()}
+    out = {"vertex": check_vertex_goldens(), "tracker": check_tracker_goldens(spmv, cpu),
+           "spectrum": check_spectrum_golden(spmv)}
     for changes, solver in CUBE_SOLVERS:
         path = os.path.join(WORK, f"golden_cube256_{solver}.png")
         argv[argv.index("--out") + 1] = path
@@ -799,6 +914,215 @@ def twolevel_split(prob, tag: str):
 
 
 # ----------------------------------------------------------------------------
+# Phases 6c and 6d: tracking and the spectrum at full width
+# ----------------------------------------------------------------------------
+
+def _check_draw(tag: str, counts: dict, values) -> None:
+    if counts["spmv_ell"] == 0 or counts["spmv_ell_multi"] == 0:
+        raise RuntimeError(f"{tag}: a kernel was not launched: {counts}")
+    if counts["plain_on_cuda"] != 0:
+        raise RuntimeError(f"{tag}: a plain version ran on CUDA tensors: {counts}")
+    if not all(math.isfinite(float(v)) for v in values):
+        raise RuntimeError(f"{tag}: non-finite value in the record")
+
+
+def tracking_path(spmv, paths, size, scratch: str):
+    """Phase 6c: bake both upsampled textures onto the cube with the
+    SampleTextureToVertices CLI (default edge length), then the vertex
+    TrackSequence CLI over A, B, A with --composed at float32 CLI defaults.
+    The frames and the tracker's outputs go to ``scratch``."""
+    import torch
+    from meshopticalflow_tpu_torch.apps.sample_texture_to_vertices import main as bake
+    from meshopticalflow_tpu_torch.apps.track_sequence import main as track
+    from meshopticalflow_tpu_torch.io.ply import read_triangle_mesh
+
+    t0 = time.time()
+    frames = []
+    for path, tag in zip(paths, "AB"):
+        frames.append(os.path.join(scratch, f"frame_{tag}_{size}.ply"))
+        if bake(["--in", os.path.join(GOLD, "cube.ply"), "--texture", path,
+                 "--out", frames[-1]]) != 0:
+            raise RuntimeError("SampleTextureToVertices failed")
+    bake_s = time.time() - t0
+    out = os.path.join(scratch, "track_full")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    spmv.reset_counts()
+    t0 = time.time()
+    rc = track(["--in", frames[0], frames[1], frames[0], "--outDir", out, "--composed",
+                "--device", DEVICE])
+    total_s = time.time() - t0
+    counts = spmv.counts()
+    if rc != 0:
+        raise RuntimeError("TrackSequence failed")
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        *pairs, composed = [json.loads(line) for line in f]
+    comp = read_triangle_mesh(os.path.join(out, "composed_resampled.ply"))
+    rec = dict(triangles=len(comp.faces), vertices=len(comp.vertices), atlas=size,
+               bake_s=bake_s, total_s=total_s, composed_s=composed["composed_seconds"], pairs=pairs,
+               launches=counts, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    with open(os.path.join(WORK, "main_path_tracking.json"), "w") as f:
+        json.dump(rec, f, indent=1)
+    for p in pairs:
+        phase("6c", f"pair {p['pair']}: init {p['init_seconds']:.2f} s, levels "
+                    f"{p['level_seconds']:.2f} s, flow_iters "
+                    f"{', '.join(f'{i:.0f}' for i in p['flow_iters'])}, alignment error "
+                    f"{p['alignment_error']:.6f}; init profile "
+                    + json.dumps({k: round(v, 3) for k, v in p["init_profile"].items()}))
+    phase("6c", f"{rec['triangles']} triangles, {rec['vertices']} vertices from {size}^2: bake "
+                f"{bake_s:.2f} s, tracker {total_s:.2f} s, composed resample "
+                f"{rec['composed_s']:.3f} s; peak {rec['peak_mem_gb']:.2f} GB")
+    phase("6c", f"launches: spmv_ell {counts['spmv_ell']}, spmv_ell_multi "
+                f"{counts['spmv_ell_multi']}, plain on CUDA {counts['plain_on_cuda']}")
+    for form, k in counts["by_form"].items():
+        phase("6c", f"launches of {form}: {k}")
+    values = [v for p in pairs for v in [p["init_seconds"], p["level_seconds"],
+                                           p["alignment_error"], *p["flow_iters"]]]
+    _check_draw("tracking", counts, values + [bake_s, total_s, rec["composed_s"]])
+    if len(pairs) != 2 or not np.isfinite(comp.colors).all():
+        raise RuntimeError(f"tracking: {len(pairs)} pairs, composed colours finite "
+                           f"{np.isfinite(comp.colors).all()}")
+    return rec
+
+
+SPECTRUM_FRACTION = 0.018      # the cube at this edge length: 49,152 triangles
+
+
+def spectrum_path(spmv, scratch: str):
+    """Phase 6d: the Spectrum CLI at its defaults (k = 20, float32) on the
+    cube at --eLength 0.018, on the card (block Lanczos on the banded
+    shift-invert solve); then the eigenvalues against ARPACK on the same
+    host operators, and one block-Lanczos step timed alone. The eigenvector
+    dumps go to ``scratch``. Returns (record, (basis, pack) for phase 7)."""
+    import io
+
+    import torch
+    from meshopticalflow_tpu_torch.apps.spectrum import main as spectrum
+    from meshopticalflow_tpu_torch.config import FlowConfig
+    from meshopticalflow_tpu_torch.geometry.mesh import build_mesh
+    from meshopticalflow_tpu_torch.geometry.subdivide import subdivide_mesh
+    from meshopticalflow_tpu_torch.io.ply import read_triangle_mesh
+    from meshopticalflow_tpu_torch.models.base import build_basis
+    from meshopticalflow_tpu_torch.ops.assemble import vector_field_mass_blocks
+    from meshopticalflow_tpu_torch.solvers import lanczos
+    from meshopticalflow_tpu_torch.utils.testing import arpack_spectrum
+
+    cube = os.path.join(GOLD, "cube.ply")
+    stats = {}
+    torch.cuda.synchronize()
+    spmv.reset_counts()
+    t0 = time.time()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = spectrum(["--mesh", cube, "--eLength", str(SPECTRUM_FRACTION), "--device",
+                       DEVICE, "--outPrefix", os.path.join(scratch, "spectrum"), "--verbose"],
+                      stats=stats)
+    total_s = time.time() - t0
+    counts = spmv.counts()
+    printed = buf.getvalue()
+    if rc != 0 or "m_alloc" not in stats["restarts"][0]:
+        raise RuntimeError("Spectrum CLI failed or did not take the block path")
+    eigenvalues = np.array(json.loads(printed.strip().splitlines()[-1])["eigenvalues"])
+
+    # the same host operators as scripts/bench_spectrum.py: S and M in float64
+    data = read_triangle_mesh(cube)
+    diag = float(np.linalg.norm(data.vertices.max(0) - data.vertices.min(0)))
+    tris, verts = subdivide_mesh(data.faces, data.vertices, SPECTRUM_FRACTION * diag)
+    mesh = build_mesh(tris, vertices=verts)
+    host, basis = build_basis(mesh, FlowConfig(dtype="float32"), DEVICE)
+    t0 = time.time()
+    oracle = arpack_spectrum(host, mesh, len(eigenvalues))
+    oracle_s = time.time() - t0
+    wellpos = np.abs(oracle) > 1e-4 * np.abs(oracle).max()
+    rel = np.abs(eigenvalues[wellpos] - oracle[wellpos]) / np.abs(oracle[wellpos])
+
+    # The CLI's last shift-invert pack, built again on the same operators,
+    # then one block-Lanczos step and one banded solve, each timed alone, at
+    # the first restart's shapes.
+    kw = dict(dtype=basis.s_vals.dtype, device=basis.s_vals.device)
+    mass = torch.as_tensor(vector_field_mass_blocks(mesh)).to(**kw)
+    pack = lanczos._shift_invert_pack(basis, mass, stats["packs"][-1]["sigma"])._replace(
+        inner_iters=stats["packs"][-1]["inner_iters"])
+    first = stats["restarts"][0]
+    n, bs, m_alloc = basis.n_coeffs, first["block"], first["m_alloc"]
+    defl_v = torch.zeros((first["deflation_width"], n), **kw)
+    defl_mv = torch.zeros_like(defl_v)
+    big_v = torch.zeros((m_alloc, n), **kw)
+    big_mv = torch.zeros_like(big_v)
+    a_blk = torch.zeros((m_alloc // bs, bs, bs), **kw)
+    b_blk = torch.zeros_like(a_blk)
+    x = lanczos._block_init(basis, mass, _rand(n, bs).to(kw["dtype"]), defl_v, defl_mv)
+    zero_b, zero_x = torch.zeros((bs, bs), **kw), torch.zeros((n, bs), **kw)
+
+    def step():
+        lanczos._lanczos_banded_blockstep(basis, mass, pack, big_v, big_mv, a_blk, b_blk,
+                                          defl_v, defl_mv, x, zero_b, zero_x, 0, 1, bs)
+
+    rhs = _rand(n, bs).to(kw["dtype"])
+    split = dict(step_device_ms=median_ms(step, reps=5, inner=2),
+                 step_issued_ms=issue_ms(step, reps=5, inner=2),
+                 band_solve_device_ms=median_ms(lambda: pack.bsolver.solve(rhs), reps=9,
+                                                inner=3),
+                 band_solve_issued_ms=issue_ms(lambda: pack.bsolver.solve(rhs), reps=9,
+                                               inner=3))
+    split["device_idle_share_of_step"] = 1 - split["step_device_ms"] / split["step_issued_ms"]
+    # one panel product of the sweeps (a solve makes two per panel and sweep)
+    dinv = pack.bsolver.dinv
+    panel_rhs = _rand(dinv.shape[1], bs).to(dinv.dtype)
+    split["panel_matmul_device_ms"] = median_ms(lambda: dinv[0] @ panel_rhs, reps=9, inner=10)
+    pat = pack.bsolver.pat
+    rec = dict(triangles=len(tris), unknowns=n, ell_width=basis.ell_width, k=len(oracle),
+               band=dict(bw=pat.bw, nb=pat.nb, m=pat.m, panels=int(pack.bsolver.dinv.shape[0]),
+                         panel_width=int(pack.bsolver.dinv.shape[1])),
+               total_s=total_s, init_s=total_s - stats["seconds"], solve_s=stats["seconds"],
+               stats=stats, launches=counts, eigenvalues=eigenvalues.tolist(),
+               oracle=oracle.tolist(), oracle_s=oracle_s, max_rel_err=float(rel.max()),
+               median_rel_err=float(np.median(rel)), well_positive=int(wellpos.sum()),
+               split=split)
+    with open(os.path.join(WORK, "main_path_spectrum.json"), "w") as f:
+        json.dump(rec, f, indent=1)
+    for p in stats["packs"]:
+        phase("6d", f"shift-invert pack at sigma {p['sigma']:.4g}: {p['seconds']:.3f} s "
+                    f"(band {pat.bw} over {pat.m} blocks of {pat.nb}, shift {p['shift_used']}), "
+                    f"inner_iters {p['inner_iters']}")
+    for r in stats["restarts"]:
+        phase("6d", "restart {restart}: depth {depth}, cut {cut}, +{new_found} pairs; lanczos "
+                    "{lanczos_s:.3f} s, purify {purify_s:.3f} s, Rayleigh-Ritz "
+                    "{rayleigh_ritz_s:.3f} s, acceptance {accept_s:.3f} s".format(**r))
+    phase("6d", f"{len(tris)} triangles, {n} unknowns (ELL width {basis.ell_width}), k "
+                f"{len(oracle)}: CLI {total_s:.2f} s (init {rec['init_s']:.2f} s, solve "
+                f"{rec['solve_s']:.2f} s), {stats['restart_count']} restarts, sigma "
+                f"escalations {stats['sigma_escalations']}; eigenvalues vs eigsh(sigma 1e-8): "
+                f"max rel err {rec['max_rel_err']:.3e} (<= 1e-3), median "
+                f"{rec['median_rel_err']:.3e} over {rec['well_positive']} pairs; eigsh "
+                f"{oracle_s:.2f} s")
+    phase("6d", "one block-Lanczos step: {step_device_ms:.3f} ms of device time, issued in "
+                "{step_issued_ms:.3f} ms (device idle {pct:.1f} %); one banded solve (4 "
+                "columns) {band_solve_device_ms:.3f} ms device, {band_solve_issued_ms:.3f} ms "
+                "issued; one panel product ({s}x{s} by {s}x4) {us:.2f} us device".format(
+                    pct=100 * split["device_idle_share_of_step"], s=int(dinv.shape[1]),
+                    us=1e3 * split["panel_matmul_device_ms"], **split))
+    phase("6d", f"launches: spmv_ell {counts['spmv_ell']}, spmv_ell_multi "
+                f"{counts['spmv_ell_multi']}, plain on CUDA {counts['plain_on_cuda']}")
+    for form, k in counts["by_form"].items():
+        phase("6d", f"launches of {form}: {k}")
+    _check_draw("spectrum", counts, [total_s, *eigenvalues, *split.values()])
+    if not rec["max_rel_err"] <= 1e-3:
+        raise RuntimeError(f"spectrum: max rel err {rec['max_rel_err']:.3e} > 1e-3")
+    return rec, (basis, pack)
+
+
+def spectrum_operators(basis, pack):
+    """The spectrum's S + sigma M (float32) at 1, 4 and 8 columns: the
+    Lanczos products, the block recurrence and the 32-column purification
+    and Rayleigh-Ritz blocks (four launches of 8)."""
+    n = basis.n_coeffs
+    return [(name, "spectrum S+sigma M", basis.ell_cols, pack.sys_vals, x)
+            for name, x in (("spmv_ell", _rand(n)), ("spmv_ell_multi", _rand(n, 4)),
+                            ("spmv_ell_multi", _rand(n, 8)))]
+
+
+# ----------------------------------------------------------------------------
 # Phase 7: the SpMV kernels at the multigrid problem's operators
 # ----------------------------------------------------------------------------
 
@@ -1043,12 +1367,21 @@ def main() -> int:
                                         vertex=tag == "conformal")
         del tprob
 
+    torch.cuda.empty_cache()
+    # the baked frames, the tracker's and the spectrum's outputs (~100 MB)
+    # stay out of the records directory
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=REPO) as scratch:
+        draws["tracking"] = tracking_path(spmv, paths, size, scratch)
+        torch.cuda.empty_cache()
+        draws["spectrum"], spectrum_ops = spectrum_path(spmv, scratch)
+    operators += spectrum_operators(*spectrum_ops)
+
     rates = dict(hbm_copy_tb_s=copy_rate_tb_s(2 ** 30), l2_copy_tb_s=copy_rate_tb_s(2 ** 24))
     phase(7, f"measured copy rates: HBM {rates['hbm_copy_tb_s']:.3f} TB/s (1 GB), "
              f"L2-resident {rates['l2_copy_tb_s']:.3f} TB/s (16 MB); published HBM "
              f"{HBM_TB_S} TB/s")
     spmv_report = check_spmv(spmv, operators, rates["l2_copy_tb_s"], draws)
-    del operators
+    del operators, spectrum_ops
     split = iteration_split(prob)
     del prob
     torch.cuda.empty_cache()
@@ -1067,7 +1400,7 @@ def main() -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], ms_cold=r["ms_cold"], issue_ms=r["issue_ms"],
             **{f"launches_{tag}_path": draws[tag]["launches"][name]
-               for tag in ("jacobi", "conformal", "connection")}))
+               for tag in ("jacobi", "conformal", "connection", "tracking", "spectrum")}))
     for fn_name, rec in probe_report.items():
         kernels.append(dict(
             name=fn_name, route="cuda", source="meshopticalflow_tpu_torch/csrc/probes.cu",

@@ -41,6 +41,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="persistent worker: read JSON job lines from stdin "
                         "({\"in\": [A, B], \"out\": ..., optional flags}), print one "
                         "JSON result line per job; {\"cmd\": \"quit\"} or EOF ends it")
+    add_alignment_flags(p)
+    return p
+
+
+def add_alignment_flags(p: argparse.ArgumentParser) -> None:
+    """The device and the alignment/solver flags shared by the pairwise CLI
+    and the sequence-tracking CLI (OpticalFlow.cpp:56-109 defaults)."""
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda, cuda:N or cpu)")
     p.add_argument("--vfMode", type=int, default=0,
@@ -84,7 +91,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--flowBackend", default="auto", choices=("auto", "pallas", "xla"),
                    help="multigrid flow solver: auto/pallas = the Hopper-kernel cycle "
                         "with the exact banded coarse solve, xla = the three-level cycle")
-    return p
 
 
 def config_from_args(args) -> FlowConfig:

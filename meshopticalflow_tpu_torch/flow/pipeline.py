@@ -731,6 +731,62 @@ class FlowProblem:
                 cfg.flow_min_step, cfg.flow_max_steps)))
         return np.stack(outs)
 
+    def advected_textures(self, alpha: float = 0.5) -> np.ndarray:
+        """Advect both textures to the halfway point (InputTextureData::flow,
+        OpticalFlow.cpp:501-515), one compacted march each. Returns (2, H, W,
+        3) float in uv-space row order; unclaimed texels keep the input."""
+        h, w = self.texture_source.height, self.texture_source.width
+        t0 = time.time()
+        result = np.stack([_to_numpy(self._advect_one_texture(s, alpha)).reshape(h, w, 3)
+                           for s in range(2)])
+        secs = time.time() - t0
+        self.last_advect_stats = {"seconds": secs,
+                                  "texels_per_sec": 2 * h * w / max(secs, 1e-9)}
+        return result
+
+    def _advect_one_texture(self, s: int, alpha: float) -> torch.Tensor:
+        """Texture ``s`` advected to the halfway point: (H*W, 3) float on the
+        device, raster order, unclaimed texels keeping the input."""
+        from meshopticalflow_tpu_torch.kernels.advect import advect_texture_compacted
+
+        cfg = self.config
+        self._ensure_advect_order()
+        length = -alpha if s == 0 else 1.0 - alpha
+        quad = self._ensure_quad_tables()[s] if not cfg.nearest else None
+        colors_s, _, _, exhausted = advect_texture_compacted(
+            self.arrays.tm, self.tfield, self.tri_uvs, self.textures[s],
+            self._advect_src_t, self._advect_src_p, length, cfg.flow_min_step,
+            cfg.flow_max_steps, not cfg.nearest, quad=quad)
+        if exhausted:
+            print(f"[WARNING] texture advection: {exhausted} texel lanes "
+                  f"hit the step cap", file=sys.stderr)
+        colors = torch.zeros_like(colors_s).index_copy(0, self._advect_order, colors_s)
+        base = torch.flip(self.textures[s], [0]).reshape(-1, 3)
+        return torch.where((self.src_t >= 0)[:, None], colors, base)
+
+    def advected_texture_frames(self, frames: int) -> np.ndarray:
+        """N-frame texture interpolation (InputTextureData::flow frames
+        overload, OpticalFlow.cpp:517-539): the texel table flowed on by
+        -+1/(frames-1) per frame, sampling the original textures each frame.
+        Returns (2, frames, H, W, 3) float64 in uv-space row order."""
+        from meshopticalflow_tpu_torch.kernels.advect import advect_texture_frames_scan
+
+        cfg = self.config
+        h, w = self.texture_source.height, self.texture_source.width
+        alpha = 1.0 / (frames - 1)
+        outs = np.empty((2, frames, h, w, 3), np.float64)
+        for s in range(2):
+            base_flat = torch.flip(self.textures[s], [0]).reshape(-1, 3)
+            outs[s, 0] = _to_numpy(base_flat).reshape(h, w, 3)
+            quad = self._ensure_quad_tables()[s] if not cfg.nearest else None
+            colors = advect_texture_frames_scan(
+                self.arrays.tm, self.tfield, self.tri_uvs, self.textures[s], self.src_t,
+                self.src_p, -alpha if s == 0 else alpha, frames, cfg.flow_min_step,
+                cfg.flow_max_steps, not cfg.nearest, quad=quad)
+            colors = torch.where((self.src_t >= 0)[None, :, None], colors, base_flat[None])
+            outs[s, 1:] = _to_numpy(colors).reshape(frames - 1, h, w, 3)
+        return outs
+
     def _ensure_advect_order(self) -> None:
         """March lanes sorted by starting triangle, so neighbouring lanes
         read neighbouring table rows; outputs scatter back to raster order."""

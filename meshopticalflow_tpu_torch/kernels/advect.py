@@ -5,7 +5,10 @@ Port of meshopticalflow_tpu/kernels/advect.py:
     along the current field, sample the vertex signal there, average into
     vertices;
   * the texel march with lane compaction that the level trace and the
-    halfway output use;
+    halfway output use, and InputTextureData::flow (OpticalFlow.cpp:501-539)
+    for one and for N frames;
+  * ResampleSignalWhitneyComposedFlow (OpticalFlow.cpp:239-260): a signal
+    advected through a sequence of Whitney fields, last to first;
   * the bilinear texture fetch (MeshFlow.inl:65-84) with its y-flip and
     clamping semantics.
 """
@@ -16,7 +19,7 @@ import torch
 
 from meshopticalflow_tpu_torch.kernels.tracing import (
     CHECK_EVERY, TraceMesh, _finish, _flow_init, _flow_step, _tables,
-    flow_field_trace)
+    flow_field_trace, whitney_flow_trace)
 
 
 def sample_vertex_signal(triangles: torch.Tensor, values: torch.Tensor,
@@ -124,8 +127,8 @@ def flow_field_trace_compacted(tm: TraceMesh, vfield, times, t0, p0, min_step,
     results equal an uncompacted march of the same step budget.
 
     Returns (t1, p1, exhausted_count)."""
-    full = _flow_init(vfield, times, t0, p0, min_step)
     tab = _tables(tm, vfield)
+    full = _flow_init(tab, times, t0, p0, min_step)
     total_budget = max_steps * max(int(escalate), 1)
     idx = None            # lanes of ``full`` that ``sub`` holds (None: all)
     sub = full
@@ -163,3 +166,60 @@ def _fetch_colors(tri_uvs, texture, t1, p1, bilinear: bool, quad=None):
     uv = corners[:, 0] * w0 + corners[:, 1] * p1[:, 0:1] + corners[:, 2] * p1[:, 1:2]
     colors = sample_texture_bilinear(texture, uv, bilinear, quad=quad)
     return torch.where((t1 >= 0)[:, None], colors, torch.zeros_like(colors))
+
+
+def advect_texture_compacted(tm: TraceMesh, vfield, tri_uvs, texture, src_t, src_p, length,
+                             min_step: float = 1e-2, max_steps: int = 4096,
+                             bilinear: bool = True, quad=None):
+    """Advect texels by ``length`` (compacted march) and fetch the texture
+    at their end points (InputTextureData::flow, OpticalFlow.cpp:501-515).
+    Returns (colors, t1, p1, exhausted)."""
+    times = torch.full((src_t.shape[0],), float(length), dtype=src_p.dtype,
+                       device=src_p.device)
+    t1, p1, exhausted = flow_field_trace_compacted(tm, vfield, times, src_t, src_p,
+                                                   min_step, max_steps)
+    return _fetch_colors(tri_uvs, texture, t1, p1, bilinear, quad=quad), t1, p1, exhausted
+
+
+def advect_texture_frames_scan(tm: TraceMesh, vfield, tri_uvs, texture, src_t, src_p,
+                               alpha, frames: int, min_step: float = 1e-2,
+                               max_steps: int = 4096, bilinear: bool = True, quad=None):
+    """N-frame texture interpolation (OpticalFlow.cpp:517-539): each of the
+    ``frames`` - 1 steps flows the texel lanes on by ``alpha`` (re-reading
+    the field every ``min_step * frames``) and samples the original texture
+    at their end points. Returns colors (frames - 1, N, 3)."""
+    t, p = src_t, src_p
+    out = []
+    for _ in range(frames - 1):
+        t, p = flow_field_trace(tm, vfield, alpha, t, p, min_step * frames, max_steps)
+        out.append(_fetch_colors(tri_uvs, texture, t, p, bilinear, quad=quad))
+    return torch.stack(out)
+
+
+def resample_signal_composed_whitney(tm: TraceMesh, edge_fields, values, length,
+                                     min_step: float = 1e-2, max_steps: int = 4096):
+    """Composed-flow signal resampling (ResampleSignalWhitneyComposedFlow,
+    OpticalFlow.cpp:239-260): every triangle barycentre marches through the
+    Whitney fields ``edge_fields`` (F, 3T) of signed half-edge coefficients,
+    last to first (OpticalFlow.cpp:251), ``length`` each; the per-vertex
+    signal sampled at the end points is averaged into vertices. Returns
+    (V, C)."""
+    t_count = tm.n_triangles
+    t = torch.arange(t_count, device=values.device)
+    p = torch.full((t_count, 2), 1.0 / 3.0, dtype=values.dtype, device=values.device)
+    for ce in reversed(edge_fields):
+        t, p = whitney_flow_trace(tm, ce, length, t, p, min_step, max_steps)
+    sampled = sample_vertex_signal(tm.triangles, values, t, p)
+    return vertex_mean(tm.triangles, sampled, values.shape[0])
+
+
+def flow_field_trace_pairs(tm: TraceMesh, vfields, flow_times, t0, p0, min_step,
+                           max_steps: int = 4096):
+    """The same lanes traced through each of P flow fields (multi-pair
+    tracking), one march per pair, each equal to its solo trace.
+    vfields (P, T, 2); flow_times scalar or (P,). Returns (t1 (P, N), p1
+    (P, N, 2))."""
+    times = torch.as_tensor(flow_times, dtype=p0.dtype).expand(vfields.shape[0])
+    outs = [flow_field_trace(tm, vf, float(ft), t0, p0, min_step, max_steps)
+            for vf, ft in zip(vfields, times)]
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])

@@ -8,6 +8,10 @@ barycentres) at once.
     per-triangle field for a given flow time, re-reading the field every
     ``min_step`` of metric arc length and stopping on direction reversal
     (FEM::RiemannianMesh::flow, FEM.inl:901-994);
+  * ``whitney_flow_trace``: the same march along the Whitney field of signed
+    half-edge coefficients, evaluated at the current point (FEM.inl:998-1100);
+  * ``gradient_flow_trace`` and ``flow_field_trace_distance``: descent along
+    -grad f, and the distance-accumulating flow (FEM.inl:1102-1278);
   * ``exp_map``: straight-line geodesic of a Hermite sample, used to remap
     out-of-chart texels (FEM.inl:834-899).
 
@@ -65,20 +69,46 @@ def make_trace_mesh(mesh: HostMesh, dtype=torch.float32, device="cpu") -> TraceM
 
 @dataclasses.dataclass
 class _Tables:
-    """Flat per-triangle and per-half-edge tables one march step reads."""
+    """Flat per-triangle and per-half-edge tables one march step reads, and
+    the field the march follows: a per-triangle vector (``field``) or the
+    Whitney 1-form of signed half-edge coefficients (``ce``, with the
+    inverse metric ``g_inv4``). ``triangles`` is set when lanes stop on a
+    target vertex."""
 
     g3: torch.Tensor      # (T, 3): g00, g01, g11
     opp: torch.Tensor     # (3T,)
     lin: torch.Tensor     # (3T, 4) row-major 2x2
     const: torch.Tensor   # (3T, 2)
-    field: Optional[torch.Tensor] = None   # (T, 2)
+    field: Optional[torch.Tensor] = None    # (T, 2)
+    ce: Optional[torch.Tensor] = None       # (T, 3)
+    g_inv4: Optional[torch.Tensor] = None   # (T, 4) row-major 2x2
+    triangles: Optional[torch.Tensor] = None  # (T, 3)
+
+    def field_at(self, t, px, py):
+        """The field the march follows, at chart point (px, py) of triangle
+        t: the triangle's vector, or the Whitney field evaluated there
+        (GetWhitneyVector, FEM.inl:1008-1014). Returns (vx, vy)."""
+        if self.ce is None:
+            vf = self.field[t]
+            return vf[:, 0], vf[:, 1]
+        c = self.ce[t]
+        c0, c1, c2 = c[:, 0], c[:, 1], c[:, 2]
+        u = c2 * (1 - py) - py * (c1 + c0)
+        w = px * (c0 + c2) - (1 - px) * c1
+        return _transform(self.g_inv4[t], None, u, w)
 
 
-def _tables(tm: TraceMesh, vfield: Optional[torch.Tensor] = None) -> _Tables:
+def _tables(tm: TraceMesh, vfield: Optional[torch.Tensor] = None,
+            ce: Optional[torch.Tensor] = None) -> _Tables:
+    dtype = tm.g.dtype
     g3 = torch.stack([tm.g[:, 0, 0], tm.g[:, 0, 1], tm.g[:, 1, 1]], -1)
-    field = None if vfield is None else vfield.to(tm.g.dtype)
-    return _Tables(g3, tm.opp, tm.xform_linear.reshape(-1, 4),
-                   tm.xform_const.reshape(-1, 2), field)
+    tab = _Tables(g3, tm.opp, tm.xform_linear.reshape(-1, 4), tm.xform_const.reshape(-1, 2))
+    if ce is not None:
+        tab.ce = ce.to(dtype).reshape(-1, 3)
+        tab.g_inv4 = tm.g_inv.reshape(-1, 4)
+    elif vfield is not None:
+        tab.field = vfield.to(dtype)
+    return tab
 
 
 def _edge_exit(px, py, vx, vy, in_edge, eps):
@@ -122,27 +152,33 @@ def _transform(lin, const, px, py):
     return qx, qy
 
 
-def _flow_init(vfield, flow_time, t_idx, p, min_step) -> Dict[str, torch.Tensor]:
+def _flow_init(tab: _Tables, flow_time, t_idx, p, min_step) -> Dict[str, torch.Tensor]:
     dtype, device = p.dtype, p.device
     n = p.shape[0]
     flow_time = torch.as_tensor(flow_time, dtype=dtype, device=device).expand(n)
     direction = torch.where(flow_time < 0, -1.0, 1.0).to(dtype)
     t_safe = torch.clamp(t_idx.to(torch.int64), min=0)
-    v0 = vfield.to(dtype)[t_safe] * direction[:, None]
+    vx, vy = tab.field_at(t_safe, p[:, 0], p[:, 1])
+    vx, vy = vx * direction, vy * direction
     return dict(
         t=t_safe,
         px=p[:, 0].clone(), py=p[:, 1].clone(),
-        vx=v0[:, 0].contiguous(), vy=v0[:, 1].contiguous(),
+        vx=vx, vy=vy,
         ft=torch.abs(flow_time).clone(),
         step_left=torch.full((n,), min_step, dtype=dtype, device=device),
         in_edge=torch.full((n,), -1, dtype=torch.int64, device=device),
         direction=direction,
-        active=(t_idx >= 0) & ((v0 * v0).sum(-1) > 0),
+        active=(t_idx >= 0) & (vx * vx + vy * vy > 0),
     )
 
 
 def _flow_step(s, tab: _Tables, min_step: float, eps: float):
-    """One march step of FEM::RiemannianMesh::flow (FEM.inl:901-994)."""
+    """One march step of FEM::RiemannianMesh::flow (FEM.inl:901-994), or of
+    whitneyFlow (FEM.inl:998-1100) when the tables hold a Whitney field: the
+    field is re-read through ``tab.field_at`` at the advanced point. A state
+    with ``total`` accumulates the flow time advanced; one with ``target``
+    stops a lane on entering a triangle that holds its target vertex
+    (gradientFlow, FEM.inl:1187)."""
     t, ft, px, py, vx, vy = s["t"], s["ft"], s["px"], s["py"], s["vx"], s["vy"]
     direction = s["direction"]
     active = s["active"] & (vx * vx + vy * vy > 0)
@@ -169,8 +205,7 @@ def _flow_step(s, tab: _Tables, min_step: float, eps: float):
 
     # Re-sample branch (no edge crossing): stop on direction reversal
     # (FEM.inl:957-968), else reset to the local field value.
-    vf = tab.field[t]
-    vfx, vfy = vf[:, 0], vf[:, 1]
+    vfx, vfy = tab.field_at(t, npx, npy)
     reversal = _metric_dot(g3, vx, vy, vfx, vfy) * direction < 0
     resample = active & ~finish & update_vector
     nvx = torch.where(resample, vfx * direction, vx)
@@ -197,9 +232,12 @@ def _flow_step(s, tab: _Tables, min_step: float, eps: float):
         new_step_left)
 
     still_active = active & ~finish & ~hit_boundary & ~(resample & reversal)
+    if "target" in s:
+        hit_target = do_cross & (tab.triangles[new_t] == s["target"][:, None]).any(dim=1)
+        still_active = still_active & ~hit_target
     # Inactive lanes keep their previous state frozen.
     keep = s["active"]
-    return dict(
+    out = dict(
         t=torch.where(keep, new_t, t),
         px=torch.where(keep, npx, px),
         py=torch.where(keep, npy, py),
@@ -211,6 +249,12 @@ def _flow_step(s, tab: _Tables, min_step: float, eps: float):
         direction=direction,
         active=still_active,
     )
+    if "target" in s:
+        out["target"] = s["target"]
+    if "total" in s:
+        total = s["total"] + torch.where(active, adv, torch.zeros_like(adv))
+        out["total"] = torch.where(keep, total, s["total"])
+    return out
 
 
 def _run_steps(step_fn, state, steps: int, check_every: int = CHECK_EVERY):
@@ -252,14 +296,146 @@ def flow_field_trace(
     ``with_diagnostics`` appends the number of lanes still live when the
     ``max_steps`` cap stopped the march (the reference warns per lane on cap
     exhaustion, FEM.inl:897,992)."""
-    state = _flow_init(vfield, flow_time, t_idx, p, min_step)
     tab = _tables(tm, vfield)
+    state = _flow_init(tab, flow_time, t_idx, p, min_step)
     state, _ = _run_steps(lambda s: _flow_step(s, tab, min_step, eps), state,
                           max_steps)
     final_t, final_p = _finish(state, t_idx, p)
     if with_diagnostics:
         return final_t, final_p, int(state["active"].sum())
     return final_t, final_p
+
+
+def whitney_flow_trace(
+    tm: TraceMesh,
+    ce: torch.Tensor,           # (3T,) signed half-edge Whitney coefficients
+    flow_time,
+    t_idx: torch.Tensor,
+    p: torch.Tensor,
+    min_step: float,
+    max_steps: int = 4096,
+    eps: float = 0.0,
+    with_diagnostics: bool = False,
+):
+    """Batched FEM::RiemannianMesh::whitneyFlow (FEM.inl:998-1100): the march
+    of ``flow_field_trace`` with the Whitney field re-evaluated at the
+    current point. ``flow_time`` may be scalar or per-lane (N,);
+    ``with_diagnostics`` appends the cap-exhausted lane count."""
+    tab = _tables(tm, ce=ce)
+    state = _flow_init(tab, flow_time, t_idx, p, min_step)
+    state, _ = _run_steps(lambda s: _flow_step(s, tab, min_step, eps), state, max_steps)
+    final_t, final_p = _finish(state, t_idx, p)
+    if with_diagnostics:
+        return final_t, final_p, int(state["active"].sum())
+    return final_t, final_p
+
+
+def gradient_flow_trace(
+    tm: TraceMesh,
+    f: torch.Tensor,            # (V,) per-vertex potential
+    t_idx: torch.Tensor,        # (N,) starting triangles
+    p: torch.Tensor,            # (N, 2) starting points
+    min_step: float,
+    target_vertex=-1,           # scalar or (N,) vertex index terminating lanes
+    max_steps: int = 4096,
+    eps: float = 0.0,
+):
+    """Batched FEM::RiemannianMesh::gradientFlow (FEM.inl:1102-1202):
+    descend along -grad f, re-reading the gradient every ``min_step`` of arc
+    length, stopping on direction reversal, at the boundary, or on entering
+    a triangle that holds ``target_vertex``. The march of
+    ``flow_field_trace`` on the per-triangle field -grad f, with no flow-time
+    limit. Returns (t, p, total_time)."""
+    n = p.shape[0]
+    tri = tm.triangles
+    gx, gy = _transform(tm.g_inv.reshape(-1, 4), None, f[tri[:, 1]] - f[tri[:, 0]],
+                        f[tri[:, 2]] - f[tri[:, 0]])
+    tab = _tables(tm, torch.stack([-gx, -gy], -1))
+    tab.triangles = tri
+    state = _flow_init(tab, float("inf"), t_idx, p, min_step)
+    state["target"] = torch.as_tensor(target_vertex, device=p.device).to(torch.int64).expand(n)
+    state["total"] = torch.zeros(n, dtype=p.dtype, device=p.device)
+    state, _ = _run_steps(lambda s: _flow_step(s, tab, min_step, eps), state, max_steps)
+    final_t, final_p = _finish(state, t_idx, p)
+    return final_t, final_p, state["total"]
+
+
+def flow_field_trace_distance(
+    tm: TraceMesh,
+    vfield: torch.Tensor,
+    flow_time,
+    t_idx: torch.Tensor,
+    p: torch.Tensor,
+    max_steps: int = 4096,
+    eps: float = 0.0,
+):
+    """Batched distance-accumulating flow overload (FEM.inl:1204-1278):
+    advects by flow time with the field re-read only at crossings, stopping
+    where the carried vector opposes the next triangle's field, and
+    accumulating metric arc length. Returns (t, p, distance).
+
+    Its step is not ``_flow_step``'s: it never re-reads the field inside a
+    triangle, tests reversal against the next triangle's field before it
+    moves (a lane that stops, at a reversal or the boundary, stays where it
+    was instead of advancing to the edge), and takes the new triangle's
+    field after a crossing instead of carrying the transformed vector.
+    Only the edge exit and the transition tables are shared."""
+    dtype, device = p.dtype, p.device
+    n = p.shape[0]
+    tab = _tables(tm, vfield)
+    flow_time = torch.as_tensor(flow_time, dtype=dtype, device=device).expand(n)
+    direction = torch.where(flow_time < 0, -1.0, 1.0).to(dtype)
+    t_safe = torch.clamp(t_idx.to(torch.int64), min=0)
+    v0 = tab.field[t_safe] * direction[:, None]
+    state = dict(t=t_safe, px=p[:, 0].clone(), py=p[:, 1].clone(),
+                 vx=v0[:, 0].contiguous(), vy=v0[:, 1].contiguous(),
+                 ft=torch.abs(flow_time).clone(),
+                 dist=torch.zeros(n, dtype=dtype, device=device),
+                 in_edge=torch.full((n,), -1, dtype=torch.int64, device=device),
+                 active=t_idx >= 0)
+
+    def step(s):
+        t, px, py, vx, vy, ft = s["t"], s["px"], s["py"], s["vx"], s["vy"], s["ft"]
+        active = s["active"] & (vx * vx + vy * vy > 0)
+        step_s, idx = _edge_exit(px, py, vx, vy, s["in_edge"], eps)
+        active = active & (idx >= 0)
+        v_len = torch.sqrt(torch.clamp(_metric_dot(tab.g3[t], vx, vy, vx, vy), min=0.0))
+        finish = step_s > ft
+        e = t * 3 + torch.clamp(idx, min=0)
+        opp_e = tab.opp[e]
+        cross = active & ~finish
+        hit_boundary = cross & (opp_e < 0)
+        nb = torch.div(torch.clamp(opp_e, min=0), 3, rounding_mode="floor")
+        lin = tab.lin[e]
+        cvx, cvy = _transform(lin, None, vx, vy)
+        fnb = tab.field[nb]
+        # Reversal is checked before stepping to the edge (FEM.inl:1264-1266):
+        # the lane stops where it is.
+        reversal = cross & (opp_e >= 0) & (
+            _metric_dot(tab.g3[nb], cvx, cvy, fnb[:, 0], fnb[:, 1]) * direction < 0)
+        do_cross = cross & (opp_e >= 0) & ~reversal
+        zero = torch.zeros_like(ft)
+        adv = torch.where(finish, ft, torch.where(do_cross, step_s, zero))
+        adv = torch.where(active, adv, zero)
+        npx, npy = px + vx * adv, py + vy * adv
+        new_t = torch.where(do_cross, nb, t)
+        cpx, cpy = _transform(lin, tab.const[e], npx, npy)
+        fnew = tab.field[new_t]
+        keep = s["active"]
+        return dict(
+            t=torch.where(keep, new_t, t),
+            px=torch.where(keep, torch.where(do_cross, cpx, npx), px),
+            py=torch.where(keep, torch.where(do_cross, cpy, npy), py),
+            vx=torch.where(keep, torch.where(do_cross, fnew[:, 0] * direction, vx), vx),
+            vy=torch.where(keep, torch.where(do_cross, fnew[:, 1] * direction, vy), vy),
+            ft=torch.where(keep, ft - adv, ft),
+            dist=torch.where(keep, s["dist"] + v_len * adv, s["dist"]),
+            in_edge=torch.where(keep & do_cross, torch.remainder(opp_e, 3), s["in_edge"]),
+            active=active & ~finish & ~hit_boundary & ~reversal)
+
+    state, _ = _run_steps(step, state, max_steps)
+    final_t, final_p = _finish(state, t_idx, p)
+    return final_t, final_p, state["dist"]
 
 
 def exp_map(

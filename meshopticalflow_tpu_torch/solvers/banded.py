@@ -12,6 +12,10 @@ are the same few batched tensor ops as the scan bodies:
     panel_lower_solve   L y = rhs, one dense step per panel
     panel_upper_solve   L^T x = y, reverse
 
+and, for the spectrum's shift-invert solves, ``BandedCholeskySolver`` (the
+float32 factor behind an escalating diagonal shift) and the PCG it
+preconditions (``ell_pcg_banded``, ``ell_pcg_banded_multi``, ``bpcg_probe``).
+
 They run in the dtype of the values they are given: float32 on the float32
 path (the reference's only precision), float64 on the float64 path, which
 the card runs natively. The loops are latency-bound sequences of small
@@ -22,6 +26,7 @@ the time (PERF.md).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -29,6 +34,8 @@ import scipy.sparse as sp
 import torch
 
 from meshopticalflow_tpu_torch.ops.bsr import rcm_permutation
+from meshopticalflow_tpu_torch.ops.ell import ell_matvec
+from meshopticalflow_tpu_torch.solvers.cg import CGStats, _safe_div
 
 
 # ----------------------------------------------------------------------------
@@ -225,3 +232,152 @@ def band_solve_panels(dinv: torch.Tensor, pbelow: torch.Tensor,
     x = panel_upper_solve(dinv, pbelow, y)
     out = x.reshape(mp * s, c)[:n][inv_perm].to(b.dtype)
     return out[:, 0] if squeeze else out
+
+
+class BandedCholeskySolver:
+    """Banded direct solver with a static pattern and per-operator revalue.
+
+    Usage::
+
+        pat = build_band_pattern(ell_cols)          # once per pattern
+        solver = BandedCholeskySolver(pat, device)
+        solver.factor(ell_vals)                     # once per operator
+        x = solver.solve(b)                         # (n,) or (n, c)
+
+    The factor is float32, as the reference's: it preconditions a PCG in the
+    working dtype, which recovers what the factor's rounding lost. Solve
+    panels are up to 8 blocks tall. The block factor is dropped once the
+    solve panels are built."""
+
+    def __init__(self, pattern: BandPattern, device="cpu"):
+        self.pat = pattern
+        self.slots = torch.as_tensor(pattern.slots, device=device)
+        self.perm = torch.as_tensor(pattern.perm, device=device)
+        self.inv_perm = torch.as_tensor(pattern.inv_perm, device=device)
+        self.panel_k = max(1, min(8, pattern.bw // pattern.nb))
+        self.shift_used = 0.0
+        self.dinv = None
+        self.pbelow = None
+
+    def factor(self, ell_vals: torch.Tensor,
+               rel_shifts=(0.0, 1e-6, 1e-4, 1e-2, 1.0, 4.0, 16.0)):
+        """Refactorize from ELL values with an escalating diagonal shift,
+        each ``rel`` times max|A| (read once, after a first failure, so an
+        SPD operator factors at 0.0 without it). Raises RuntimeError when
+        every shift breaks down."""
+        pat = self.pat
+        s_blocks = band_revalue(self.slots, ell_vals.to(torch.float32), pat.m, pat.nb,
+                                pat.bw, pat.n)
+        dmax = None
+        for rel in rel_shifts:
+            if rel != 0.0 and dmax is None:
+                dmax = float(torch.max(torch.abs(ell_vals)))
+            shift = rel * (dmax or 0.0)
+            l_blocks, ok = band_cholesky(s_blocks, shift, pat.nb, pat.bw)
+            if bool(ok):
+                self.shift_used = shift
+                self.dinv, self.pbelow = build_solve_panels(l_blocks, self.panel_k)
+                return self
+        raise RuntimeError("banded Cholesky breakdown at every shift")
+
+    def solve(self, b: torch.Tensor) -> torch.Tensor:
+        if self.dinv is None:
+            raise RuntimeError("factor() before solve()")
+        return band_solve_panels(self.dinv, self.pbelow, self.perm, self.inv_perm, b,
+                                 self.pat.n)
+
+
+# ----------------------------------------------------------------------------
+# Banded-preconditioned PCG: the shift-invert inner solver. The products run
+# through the SpMV kernels (ops/ell.py:ell_matvec); alpha, beta, rz and the
+# zero-denominator guards stay device tensors, so a chunk reads nothing back.
+# ----------------------------------------------------------------------------
+
+def _coldot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return torch.sum(u * v, dim=0)
+
+
+def _bpcg_step(cols, vals, solver: BandedCholeskySolver, s):
+    """One banded-preconditioned PCG step on (n,) or (n, c) right-hand sides
+    (per-column step lengths). The single definition behind the solver
+    chunks and the contraction probe, so the probe measures exactly the
+    iteration it sizes."""
+    x, r, z, p, rz = s
+    ap = ell_matvec(cols, vals, p)
+    alpha = _safe_div(rz, _coldot(p, ap))
+    x = x + alpha * p
+    r = r - alpha * ap
+    z = solver.solve(r).to(r.dtype)
+    rz_new = _coldot(r, z)
+    beta = _safe_div(rz_new, rz)
+    p = z + beta * p
+    return x, r, z, p, rz_new
+
+
+def _bpcg_chunk(cols, vals, solver: BandedCholeskySolver, x, r, z, p, rz, iters: int):
+    """``iters`` steps on (n,) or (n, c) right-hand sides (the reference's
+    ``_bpcg_chunk`` and ``_bpcg_multi_chunk``); returns the state and the
+    squared residual norm per column (a scalar for a single rhs), on the
+    device."""
+    s = (x, r, z, p, rz)
+    for _ in range(iters):
+        s = _bpcg_step(cols, vals, solver, s)
+    return (*s, _coldot(s[1], s[1]))
+
+
+def bpcg_probe(cols, vals, solver: BandedCholeskySolver, b: torch.Tensor,
+               iters: int) -> torch.Tensor:
+    """||r||^2 trajectory (iters + 1,) of ``iters`` banded-PCG steps on rhs
+    ``b``, read once by the caller: run once per factorization to measure
+    the preconditioner's contraction rate, from which the fixed-trip inner
+    solves are sized."""
+    z0 = solver.solve(b).to(b.dtype)
+    s = (torch.zeros_like(b), b, z0, z0, torch.dot(b, z0))
+    hist = [torch.dot(b, b)]
+    for _ in range(iters):
+        s = _bpcg_step(cols, vals, solver, s)
+        hist.append(torch.dot(s[1], s[1]))
+    return torch.stack(hist)
+
+
+def ell_pcg_banded(cols, vals, solver: BandedCholeskySolver, b: torch.Tensor,
+                   tol: float = 1e-10, max_iters: int = 400, chunk: int = 16):
+    """PCG on a padded-ELL system preconditioned by a banded Cholesky factor
+    of (a float32 approximation of) the same system: the amortized
+    shift-invert inner solve (EigenvalueSolver.h:176-217 factors S - sigma B
+    once and back-substitutes per Lanczos step). Reads ||r||^2 once per
+    chunk. Returns (x, CGStats)."""
+    b2 = float(torch.dot(b, b))
+    if b2 == 0:
+        return torch.zeros_like(b), CGStats(0, 0.0)
+    z = solver.solve(b).to(b.dtype)
+    x, r, p, rz = torch.zeros_like(b), b, z, torch.dot(b, z)
+    threshold = (tol ** 2) * b2
+    done, r2 = 0, b2
+    while done < max_iters and r2 > threshold:
+        iters = min(chunk, max_iters - done)
+        x, r, z, p, rz, r2_dev = _bpcg_chunk(cols, vals, solver, x, r, z, p, rz, iters)
+        r2 = float(r2_dev)
+        done += iters
+    return x, CGStats(done, math.sqrt(max(r2, 0.0) / b2))
+
+
+def ell_pcg_banded_multi(cols, vals, solver: BandedCholeskySolver, b: torch.Tensor,
+                         tol: float = 1e-10, max_iters: int = 400, chunk: int = 16):
+    """Multi-rhs ``ell_pcg_banded`` for B (n, c): one PCG per column with a
+    shared preconditioner application, stepped until every column passes
+    ``tol`` (converged columns take harmless extra steps). Reads the
+    per-column ||r||^2 once per chunk. Returns (X, iterations)."""
+    b2 = _coldot(b, b).double().cpu().numpy()
+    if not b2.any():
+        return torch.zeros_like(b), 0
+    z = solver.solve(b).to(b.dtype)
+    x, r, p, rz = torch.zeros_like(b), b, z, _coldot(b, z)
+    threshold = (tol ** 2) * np.where(b2 > 0, b2, 1.0)
+    done, r2 = 0, b2
+    while done < max_iters and (r2 > threshold).any():
+        iters = min(chunk, max_iters - done)
+        x, r, z, p, rz, r2_dev = _bpcg_chunk(cols, vals, solver, x, r, z, p, rz, iters)
+        r2 = r2_dev.double().cpu().numpy()
+        done += iters
+    return x, done

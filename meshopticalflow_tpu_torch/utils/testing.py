@@ -1,0 +1,59 @@
+"""Synthetic meshes and oracles shared by the port's tests and chip_smoke.py.
+
+Jax-free: ``octa_sphere`` is a copy of meshopticalflow_tpu/utils/testing.py's
+(drift guard: tests/test_torch_host.py::HOST_COPIES); ``arpack_spectrum`` is
+the spectrum's reference on the card, where no JAX package is installed.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+
+def octa_sphere(subdiv: int = 2) -> Tuple[np.ndarray, np.ndarray]:
+    """Closed octahedron-based sphere mesh (all edges interior)."""
+    verts = [np.array(v, np.float64) for v in
+             [(1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1)]]
+    tris = [(0, 2, 4), (2, 1, 4), (1, 3, 4), (3, 0, 4),
+            (2, 0, 5), (1, 2, 5), (3, 1, 5), (0, 3, 5)]
+    for _ in range(subdiv):
+        cache = {}
+        new_tris = []
+
+        def midpoint(i, j):
+            key = (min(i, j), max(i, j))
+            if key not in cache:
+                m = verts[i] + verts[j]
+                m /= np.linalg.norm(m)
+                cache[key] = len(verts)
+                verts.append(m)
+            return cache[key]
+
+        for a, b, c in tris:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new_tris += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+        tris = new_tris
+    return np.array(tris, np.int32), np.stack(verts)
+
+
+def arpack_spectrum(host, mesh, k: int):
+    """scipy's ARPACK in shift-invert mode (sigma 1e-8, the reference's
+    solver, EigenvalueSolver.h:176) on the float64 host operators S and
+    M = P^T (g area) P, from a seeded start (tests/test_spectrum.py,
+    scripts/bench_spectrum.py). Returns the k eigenvalues, ascending."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    t, kk = host.p_idx.shape
+    rows = np.repeat(np.arange(2 * t).reshape(t, 2), kk, axis=1).ravel()
+    cols = np.repeat(host.p_idx[:, None, :], 2, axis=1).ravel()
+    p = sp.coo_matrix((host.p_wt.ravel(), (rows, cols)), shape=(2 * t, host.n_coeffs)).tocsr()
+    g = sp.bsr_matrix((mesh.g * mesh.area[:, None, None], np.arange(t), np.arange(t + 1)),
+                      shape=(2 * t, 2 * t))
+    m = (p.T @ (g @ p)).tocsc()
+    v0 = np.random.default_rng(7).normal(size=host.n_coeffs)
+    lams = spla.eigsh(sp.csc_matrix(host.smooth), k=k, M=m, sigma=1e-8, which="LM", v0=v0,
+                      return_eigenvectors=False)
+    return np.sort(lams)

@@ -175,3 +175,119 @@ def test_banded_on_real_coarse_flow_system():
     _, _, ok64, panels64 = _port_factor(pat, vals, torch.float64)
     x64 = _port_solve(pat, panels64, torch.as_tensor(rhs))
     assert ok64 and _rel(x64, spla.spsolve(a.tocsc(), rhs)) < 1e-8
+
+
+# -- the spectrum's shift-invert solver ---------------------------------------
+
+def _shift_invert_system(case):
+    """(cols, vals) float64: a spectrum system S + sigma M (Whitney basis):
+    "sphere", the octahedral sphere subdivided twice at sigma 1e-3; "torus",
+    the 12x8 torus of tests/test_spectrum.py at sigma 1e-8 (nearly singular:
+    its float32 factor needs a diagonal shift); or "indefinite", the
+    mesh-like SPD system shifted indefinite by 1e-3 of its largest diagonal
+    (a 1e-2 relative shift makes it definite again)."""
+    import scipy.sparse as sp
+
+    if case == "indefinite":
+        rng = np.random.default_rng(3)
+        a = _mesh_like_spd(256, rng)
+        lmin = np.linalg.eigvalsh(a.toarray())[0]
+        a = (a - sp.identity(256) * (lmin + 1e-3 * a.diagonal().max())).tocsr()
+        return _to_ell(a)
+    from meshopticalflow_tpu.config import FlowConfig
+    from meshopticalflow_tpu.geometry.mesh import build_mesh
+    from meshopticalflow_tpu.models.base import build_basis
+    from meshopticalflow_tpu.ops.assemble import vector_field_mass_blocks
+    from meshopticalflow_tpu.solvers.lanczos import _shift_invert_pack
+    from tests.conftest import make_sphere_mesh
+    from tests.test_spectrum import _make_torus_mesh
+
+    tris, verts = make_sphere_mesh(2) if case == "sphere" else _make_torus_mesh()
+    mesh = build_mesh(tris, vertices=verts)
+    _, dev = build_basis(mesh, FlowConfig(dtype="float64"))
+    pack = _shift_invert_pack(dev, jnp.asarray(vector_field_mass_blocks(mesh)),
+                              1e-3 if case == "sphere" else 1e-8, inner="jacobi")
+    return np.asarray(dev.ell_cols), np.asarray(pack.sys_vals)
+
+
+def _csr(cols, vals):
+    import scipy.sparse as sp
+
+    n, w = cols.shape
+    return sp.csr_matrix((vals.ravel(), (np.repeat(np.arange(n), w), cols.ravel())),
+                         shape=(n, n))
+
+
+@pytest.mark.parametrize("case", ["sphere", "indefinite"])
+def test_banded_cholesky_solver_matches_reference(case):
+    """BandedCholeskySolver.factor/solve: the float32 factor (both packages'
+    precision) against the reference's, with the same diagonal shift; the
+    port's float64 factor against scipy (SPD case)."""
+    cols, vals = _shift_invert_system(case)
+    n = cols.shape[0]
+    pat = tb.build_band_pattern(cols, nb=64)
+    ref = jb.BandedCholeskySolver(pat).factor(jnp.asarray(vals))
+    ours = tb.BandedCholeskySolver(pat).factor(torch.as_tensor(vals))
+    assert ours.shift_used == ref.shift_used
+    assert (ours.shift_used > 0) == (case == "indefinite")
+    b = np.random.default_rng(7).normal(size=(n, 3))
+    x_ref = np.asarray(ref.solve(jnp.asarray(b)))
+    x = ours.solve(torch.as_tensor(b))
+    assert x.dtype == torch.float64 and _rel(x.numpy(), x_ref) < F32_TOL
+    if case == "sphere":
+        _, _, ok64, panels64 = _port_factor(pat, vals, torch.float64)
+        x64 = _port_solve(pat, panels64, torch.as_tensor(b))
+        assert ok64 and _rel(x64, spla.spsolve(_csr(cols, vals).tocsc(), b)) < F64_TOL
+    with pytest.raises(RuntimeError):
+        tb.BandedCholeskySolver(pat).factor(torch.as_tensor(-np.abs(vals)),
+                                            rel_shifts=(0.0, 1e-6))
+
+
+@pytest.mark.parametrize("case", ["sphere", "torus"])
+def test_bpcg_probe_trajectory_matches_reference(case):
+    """The probe's ||r||^2 trajectory, each package with its own float32
+    factor. Both packages' panel solves round the rhs to float32, so past
+    ~1e-12 of ||b||^2 the trajectory is that rounding; above it they agree
+    to 1e-5. The factor here is of A + max|A| I (the shift ladder's 1.0
+    rung), a weak preconditioner, so the trajectory stays above that floor
+    for a few steps."""
+    cols, vals = _shift_invert_system(case)
+    pat = tb.build_band_pattern(cols, nb=64)
+    ref = jb.BandedCholeskySolver(pat).factor(jnp.asarray(vals), rel_shifts=(1.0,))
+    ours = tb.BandedCholeskySolver(pat).factor(torch.as_tensor(vals), rel_shifts=(1.0,))
+    b = np.random.default_rng(12345).normal(size=cols.shape[0])
+    h_ref = np.asarray(jb.bpcg_probe(jnp.asarray(cols), jnp.asarray(vals), ref.dinv,
+                                     ref.pbelow, ref.perm, ref.inv_perm, jnp.asarray(b), 12,
+                                     ref.pat.n))
+    h = tb.bpcg_probe(torch.as_tensor(cols), torch.as_tensor(vals), ours,
+                      torch.as_tensor(b), 12).numpy()
+    assert h.shape == h_ref.shape == (13,)
+    live = h_ref > 1e-12 * h_ref[0]
+    assert live[:4].all() and h_ref[4] < h_ref[0]
+    np.testing.assert_allclose(h[live], h_ref[live], rtol=1e-5)
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_ell_pcg_banded_matches_reference(multi):
+    """Each package with its own float32 factor: equal iteration counts and
+    solutions within 1e-10, single and multi-rhs."""
+    cols, vals = _shift_invert_system("sphere")
+    n = cols.shape[0]
+    pat = tb.build_band_pattern(cols, nb=64)
+    ref = jb.BandedCholeskySolver(pat).factor(jnp.asarray(vals))
+    ours = tb.BandedCholeskySolver(pat).factor(torch.as_tensor(vals))
+    rng = np.random.default_rng(11)
+    b = rng.normal(size=(n, 5)) if multi else rng.normal(size=n)
+    if multi:
+        b[:, 4] = 0.0   # a zero column converges at once
+    fn_j = jb.ell_pcg_banded_multi if multi else jb.ell_pcg_banded
+    fn_t = tb.ell_pcg_banded_multi if multi else tb.ell_pcg_banded
+    x_ref, st_ref = fn_j(jnp.asarray(cols), jnp.asarray(vals), ref, jnp.asarray(b), tol=1e-12)
+    x, st = fn_t(torch.as_tensor(cols), torch.as_tensor(vals), ours, torch.as_tensor(b),
+                 tol=1e-12)
+    iters_ref = st_ref if multi else int(st_ref.iterations)
+    iters = st if multi else st.iterations
+    assert iters == iters_ref > 0
+    assert _rel(x.numpy(), x_ref) <= 1e-10
+    r = b - _csr(cols, vals) @ x.numpy()
+    assert np.linalg.norm(r) <= 1e-10 * np.linalg.norm(b)

@@ -193,3 +193,28 @@ def test_cuda_probe_matches_plain_and_script(name):
     res = probes.run_probe(kernel, builder, torch.device("cuda"))
     assert kernel.launches == before + 1
     assert res["correct"] and res["matches_plain"], res
+
+
+@pytest.mark.gpu
+def test_cuda_spectrum_matches_arpack():
+    """compute_spectrum's CUDA path (block Lanczos on the banded shift-invert
+    solve) in float64 on the sphere subdivided twice, k = 6, against scipy's
+    ARPACK at rtol 1e-5 (utils/testing.py, as chip_smoke.py)."""
+    _require_card()
+    from meshopticalflow_tpu_torch.config import FlowConfig
+    from meshopticalflow_tpu_torch.geometry.mesh import build_mesh
+    from meshopticalflow_tpu_torch.models.base import build_basis
+    from meshopticalflow_tpu_torch.ops.assemble import vector_field_mass_blocks
+    from meshopticalflow_tpu_torch.solvers.lanczos import compute_spectrum
+    from meshopticalflow_tpu_torch.utils.testing import arpack_spectrum, octa_sphere
+
+    tris, verts = octa_sphere(2)
+    mesh = build_mesh(tris, vertices=verts)
+    host, basis = build_basis(mesh, FlowConfig(dtype="float64"), "cuda")
+    mass = torch.as_tensor(vector_field_mass_blocks(mesh)).cuda()
+    spmv.reset_counts()
+    res = compute_spectrum(basis, mass, 6, cg_tol=1e-12, max_lanczos=min(host.n_coeffs, 600),
+                           host_stepped=True)
+    counts = spmv.counts()
+    np.testing.assert_allclose(res.eigenvalues, arpack_spectrum(host, mesh, 6), rtol=1e-5)
+    assert counts["spmv_ell_multi"] > 0 and counts["plain_on_cuda"] == 0

@@ -364,6 +364,72 @@ def test_png_write_read_round_trip(tmp_path):
     _assert_same(t_png.read_png_rgb(path), img)
 
 
+# -- FEM operators, intrinsic topology, binary vectors -------------------------
+
+# Property tests of the reference's host modules, run against the port's
+# copies: the test module's handle on the reference module is swapped for
+# the copy, and the mesh fixtures are built by the port's build_mesh.
+REFERENCE_TESTS = [
+    ("ops.fem_ops", "tests.test_fem_ops", "F", name) for name in (
+        "test_tensor_root", "test_trace_weights_reproduce_inverse_metric",
+        "test_center_areas_sum_to_area", "test_stiffness_symmetric_psd_kills_flat_constants",
+        "test_mc_stiffness_reduces_to_quadrature_stiffness",
+        "test_gradient_matrix_exact_for_linear", "test_gradient_dual_is_weighted_transpose")
+] + [
+    ("geometry.topology", "tests.test_topology", "T", name) for name in (
+        "test_subdivide_1to4_preserves_area_and_counts", "test_edge_flip_flat_square",
+        "test_is_voronoi_edge_and_flip_restores_delaunay",
+        "test_vertex_cone_angle_octahedron_defect",
+        "test_get_prolongation_constant_and_partition")
+]
+
+
+@pytest.mark.parametrize("copy,module,handle,name", REFERENCE_TESTS)
+def test_host_copy_passes_reference_tests(copy, module, handle, name, monkeypatch):
+    from tests.conftest import make_grid_mesh, make_sphere_mesh
+
+    mod = importlib.import_module(module)
+    monkeypatch.setattr(mod, handle, importlib.import_module(f"meshopticalflow_tpu_torch.{copy}"))
+    monkeypatch.setattr(mod, "build_mesh", t_mesh.build_mesh)
+
+    def sphere():
+        tris, verts = make_sphere_mesh(2)
+        return t_mesh.build_mesh(tris, vertices=verts)
+
+    def flat():
+        tris, verts = make_grid_mesh(5)
+        return t_mesh.build_mesh(tris, vertices=verts, make_unit_area=False)
+
+    test = getattr(mod, name)
+    fixtures = {"sphere": sphere, "flat": flat}
+    test(*[fixtures[arg]() for arg in inspect.signature(test).parameters])
+
+
+@pytest.mark.parametrize("dual,quadrature", [(0, 0), (3, 1), (5, 2)])
+def test_fem_stiffness_host_copy(fixture, dual, quadrature):
+    from meshopticalflow_tpu.ops import fem_ops as j_fem
+    from meshopticalflow_tpu_torch.ops import fem_ops as t_fem
+
+    _assert_same(j_fem.vector_field_stiffness_matrix(fixture["mesh_j"], dual, quadrature),
+                 t_fem.vector_field_stiffness_matrix(fixture["mesh_t"], dual, quadrature))
+
+
+def test_binio_across_packages(tmp_path):
+    from meshopticalflow_tpu.io import binio as j_binio
+    from meshopticalflow_tpu_torch.io import binio as t_binio
+
+    rng = np.random.default_rng(2)
+    vec, grid = rng.normal(size=(17, 2)), rng.normal(size=(5, 7))
+    for writer, reader in ((j_binio, t_binio), (t_binio, j_binio)):
+        writer.write_vector(str(tmp_path / "v.bin"), vec)
+        writer.write_grid(str(tmp_path / "g.bin"), grid)
+        _assert_same(reader.read_vector(str(tmp_path / "v.bin"), width=2), vec)
+        _assert_same(reader.read_grid(str(tmp_path / "g.bin")), grid)
+    j_binio.write_vector(str(tmp_path / "a.bin"), vec)
+    t_binio.write_vector(str(tmp_path / "b.bin"), vec)
+    assert (tmp_path / "a.bin").read_bytes() == (tmp_path / "b.bin").read_bytes()
+
+
 # -- drift guard -------------------------------------------------------------
 
 # sha256[:16] of the reference sources the port's host code was copied from:
@@ -394,6 +460,10 @@ HOST_COPIES = {
     "models.patches": (None, "6602617acf94526e"),
     "ops.bsr": (("rcm_permutation",), "af0236d777da6e88"),
     "solvers.banded": (("BandPattern", "build_band_pattern"), "fe2adb6fcbfcf9c0"),
+    "io.binio": (None, "8e9819942422810d"),
+    "ops.fem_ops": (None, "1743f8c386c0bfb7"),
+    "geometry.topology": (None, "e41c51d080690df1"),
+    "utils.testing": (("octa_sphere",), "9d069d94bb707c99"),
 }
 
 
