@@ -11,7 +11,11 @@ any failure raises, so the run exits non-zero and prints no final ok line.
   3. the probe path: the seven capability-probe kernels through their entry
      point (``python -m meshopticalflow_tpu_torch.kernels.probes``), then each
      against its plain version and the reference script's numpy expectation,
-     with times, bounds and the one-call PyTorch yardstick;
+     with times, bounds and the one-call PyTorch yardstick; the bulk copy
+     and the grid accumulation are timed in turns with their yardstick
+     (clone; torch.sum), at the script's shapes and at a size where bytes
+     set the time (LARGE_PROBES), with their launch plans, rates and bound
+     shares;
   4. the reference-binary goldens in float64 on the card: ref_vertex.ply
      and the five goldens of the other bases (Conformal, Connection in its
      three modes, divFree), ref_cube256.png through the CLI default
@@ -285,9 +289,77 @@ def _probe_library(name: str, args):
     return calls.get(name)   # block select needs an index_select and an add
 
 
+# The probes timed in turns with their one-call yardstick, and again at a
+# size where bytes, not the launch, set the time: (x's shape, the probe's
+# further arguments). Bulk copy: rows 65,536:196,608 of (262,144, 128), 67 MB
+# in and 67 MB out; accumulation: (8,192, 3, 8, 128) -> (65,536, 128), 100.7
+# MB in and 33.6 MB out.
+LARGE_PROBES = {"manual HBM->VMEM DMA": ((262144, 128), (65536, 131072)),
+                "grid accumulation": ((8192, 3, 8, 128), ())}
+TURN_ROUNDS = {"script": 5, "large": 2}
+
+
+def in_turns(kernel_fn, library_fn, rounds: int):
+    """Device medians (median_ms) of a kernel and its yardstick taken in
+    turns, kernel, library, library, kernel, for ``rounds`` rounds, so the
+    two are read on one card in one window: (kernel list, library list)."""
+    k_ms, l_ms = [], []
+    for _ in range(rounds):
+        k_ms.append(median_ms(kernel_fn))
+        l_ms += [median_ms(library_fn), median_ms(library_fn)]
+        k_ms.append(median_ms(kernel_fn))
+    return k_ms, l_ms
+
+
+def _plan_of(probes, name: str, args) -> dict:
+    """The launch plan the wrapper takes for these operands."""
+    x = args[0]
+    sms = probes.sm_count(x.device)
+    if name == "grid accumulation":
+        b, _, r, w = x.shape
+        return dataclasses.asdict(probes.accumulate_plan(b, r * w, sms, x.data_ptr() % 16 == 0))
+    return dataclasses.asdict(probes.bulk_copy_plan(args[2] * x.shape[1], sms))
+
+
+def yardstick_turns(probes, name: str, kernel, args, size: str) -> dict:
+    """A probe and its one-call yardstick in turns at ``args``: both medians
+    and their spread, bytes and bound, the kernel's rate and bound share,
+    and the plan the wrapper takes."""
+    k_ms, l_ms = in_turns(lambda: kernel(*args), _probe_library(name, args),
+                          TURN_ROUNDS[size])
+    out = kernel(*args)
+    nbytes, flops = _probe_need(name, args, out)
+    b_ms, b_by = bound(nbytes, flops, "float32")
+    ms, lib = float(np.median(k_ms)), float(np.median(l_ms))
+    rec = dict(shape=list(args[0].shape), plan=_plan_of(probes, name, args), ms=ms,
+               ms_spread=[min(k_ms), max(k_ms)], library_ms=lib,
+               library_ms_spread=[min(l_ms), max(l_ms)], bytes=nbytes, bound_ms=b_ms,
+               bound_by=b_by, tb_s=nbytes / (ms * 1e-3) / 1e12, bound_share=b_ms / ms,
+               library_tb_s=nbytes / (lib * 1e-3) / 1e12)
+    phase(3, f"{name} ({kernel.__name__}) at {tuple(args[0].shape)}, in turns x"
+             f"{TURN_ROUNDS[size]}: kernel {ms * 1e3:.2f} us "
+             f"[{min(k_ms) * 1e3:.2f}-{max(k_ms) * 1e3:.2f}], library "
+             f"{lib * 1e3:.2f} us [{min(l_ms) * 1e3:.2f}-{max(l_ms) * 1e3:.2f}]; kernel <= "
+             f"library: {ms <= lib}; {rec['tb_s']:.3f} TB/s, bound {b_ms * 1e3:.3f} us "
+             f"({nbytes} B), bound share {rec['bound_share']:.3f}; plan {rec['plan']}")
+    return rec
+
+
+def large_probe_args(name: str):
+    """The byte-bound operands of LARGE_PROBES, made on the card: small
+    integers in f32, so every sum is exact."""
+    import torch
+
+    shape, rest = LARGE_PROBES[name]
+    n = math.prod(shape)
+    x = (torch.arange(n, dtype=torch.int32, device=DEVICE) % 251).to(torch.float32)
+    return (x.view(shape), *rest)
+
+
 def probe_phase(probes):
     """Phase 3: the probe entry point with counts from 0, then per-probe
-    checks and times."""
+    checks and times; the bulk copy and the accumulation also in turns with
+    their yardstick, at the script's shapes and at LARGE_PROBES."""
     import torch
 
     probes.reset_counts()
@@ -311,11 +383,27 @@ def probe_phase(probes):
         b_ms, b_by = bound(nbytes, flops, "float32")
         lib = _probe_library(name, args)
         rec = dict(replaces=ref, launches=launches[kernel.__name__],
-                   max_abs_err=res["max_abs_err"], ms=median_ms(lambda: kernel(*args)),
-                   issue_ms=issue_ms(lambda: kernel(*args)),
+                   max_abs_err=res["max_abs_err"], issue_ms=issue_ms(lambda: kernel(*args)),
                    plain_ms=median_ms(lambda: plain(*args)), bound_ms=b_ms,
-                   bound_by=b_by, bytes=nbytes,
-                   library_ms=None if lib is None else median_ms(lib))
+                   bound_by=b_by, bytes=nbytes)
+        if name in LARGE_PROBES:
+            rec["turns"] = yardstick_turns(probes, name, kernel, args, "script")
+            rec.update(ms=rec["turns"]["ms"], library_ms=rec["turns"]["library_ms"])
+            big = large_probe_args(name)
+            got, want = kernel(*big), plain(*big)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if not torch.equal(got, want):
+                raise RuntimeError(f"probe {name} at {LARGE_PROBES[name][0]}: kernel and "
+                                   f"plain differ by {err}")
+            del got, want
+            rec["large"] = dict(max_abs_err=err,
+                                **yardstick_turns(probes, name, kernel, big, "large"))
+            del big
+            torch.cuda.empty_cache()
+        else:
+            rec.update(ms=median_ms(lambda: kernel(*args)),
+                       library_ms=None if lib is None else median_ms(lib))
         report[kernel.__name__] = rec
         phase(3, f"{name} ({kernel.__name__}): matches plain and script; kernel "
                  f"{rec['ms'] * 1e3:.2f} us ({rec['issue_ms'] * 1e3:.2f} us issued back "
@@ -1407,7 +1495,7 @@ def main() -> int:
             replaces=rec["replaces"], launches=rec["launches"],
             max_abs_err=rec["max_abs_err"], ms=rec["ms"], plain_ms=rec["plain_ms"],
             bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
-            library_ms=rec["library_ms"], issue_ms=rec["issue_ms"]))
+            library_ms=rec["library_ms"], issue_ms=rec["issue_ms"], large=rec.get("large")))
     elapsed = time.time() - t_start
     with open(os.path.join(WORK, "kernels.json"), "w") as f:
         json.dump(dict(card=card, rates=rates, spmv=spmv_report, probes=probe_report,

@@ -11,17 +11,40 @@
 //                          the source block is chosen by a device index array
 //                          read in the kernel (sel[blockIdx.x]), Hopper's form of
 //                          the scalar-prefetch index map
-//   probe_accumulate    <- p_accumulate_grid (:110)         o[b] = sum_k x[b, k]; one CTA
-//                          per output block loops over k in order (the TPU's
-//                          revisited output block), no atomics, so the sum order
-//                          is fixed
-//   probe_bulk_copy     <- p_dma_hbm_to_vmem (:130)         a 1-D bulk asynchronous copy
-//                          global -> shared (cp.async.bulk, the TMA's 1-D form)
-//                          completing on an mbarrier, then shared -> out; the
-//                          counterpart of make_async_copy plus a DMA semaphore
+//   probe_accumulate    <- p_accumulate_grid (:110, call :121)  o[b] = sum_k x[b, k]
+//   probe_bulk_copy     <- p_dma_hbm_to_vmem (:130, call :142)  rows of x through a 1-D
+//                          bulk asynchronous copy global -> shared
 //
-// Bound: every probe moves a few KB to 512 KB and does at most one add per
-// element, so each is bound by its bytes, and at these sizes by its launch.
+// Bound: every probe moves a few KB to 512 KB at the reference script's
+// shapes and does at most one add per element, so each is bound by its
+// bytes, and at those sizes by its launch.
+//
+// probe_accumulate: the sum over the revisited grid axis of the TPU probe,
+// taken in the fixed order k = 0 .. K-1 by one thread per output element,
+// no atomics. Bound: the launch at the script's (4,3,8,128) (1,024 output
+// vectors, 48 KB read), the bytes (x read once, o written once) at large
+// shapes. Design: one thread per 16-byte output vector (float4), so
+// neighbouring threads touch neighbouring addresses; every one of a
+// thread's K loads is issued before its first add (K a template parameter
+// up to 8, batches of 8 above that), so the loads cost one round of
+// latency, not K; small grids are spread over many SMs in CTAs of few
+// threads, large ones walked by a grid-stride loop. A scalar form (one
+// float a thread) takes R*W not a multiple of 4 or an operand that is not
+// 16-byte aligned. kernels/probes.py:accumulate_plan picks form and grid.
+//
+// probe_bulk_copy: the counterpart of make_async_copy plus a DMA semaphore,
+// a 1-D cp.async.bulk (the TMA's 1-D form) global -> shared completing on
+// an mbarrier armed with expect_tx. Bound: the launch at the script's 64 KB,
+// the bytes (read once, written once) at large sizes. Design: the write-back
+// goes through the TMA too (cp.async.bulk shared -> global in a bulk group),
+// so no thread touches the data and one thread per CTA issues everything;
+// kernels/probes.py:bulk_copy_plan cuts a copy into about one chunk per SM,
+// 1 KB to 16 KB (64 CTAs of 1 KB at the script's 64 KB on 132 SMs), and a
+// copy of more chunks than a few CTAs an SM take into 16 KB chunks walked
+// by persistent CTAs through a 2-stage ring on two mbarriers, so the next
+// chunks' loads are in flight while chunk i is stored. On an H100 the bulk
+// load's latency, not the store or the chunking, is what a 64 KB copy pays
+// above the launch (PERF.md; probe_sweep.py's ablations).
 //
 // Each entry point launches on the given stream and returns
 // cudaGetLastError(), which the Python wrapper checks.
@@ -32,11 +55,32 @@
 namespace {
 
 constexpr int kThreads = 256;
-// Floats one CTA stages through shared memory in probe_bulk_copy (16 KB).
-constexpr int kBulkFloats = 4096;
+// K up to this is a template parameter of probe_accumulate_kernel; larger K
+// runs in batches of this many loads.
+constexpr int kMaxUnrolledK = 8;
 
 unsigned blocks_for(int64_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Bounded wait on an mbarrier phase: a copy that never completes traps (a
+// launch error the wrapper raises on) instead of spinning forever.
+__device__ __forceinline__ void wait_parity(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t spin = 0; !done; ++spin) {
+    if (spin == (1u << 24)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
 }
 
 __global__ void probe_scale_kernel(const float* __restrict__ x,
@@ -86,62 +130,136 @@ __global__ void probe_block_select_kernel(const float* __restrict__ x,
   }
 }
 
-// x (nblocks, k, block_elems) -> o (nblocks, block_elems); one CTA per block.
-__global__ void probe_accumulate_kernel(const float* __restrict__ x,
-                                        float* __restrict__ o, int k,
-                                        int64_t block_elems) {
-  const float* src = x + static_cast<int64_t>(blockIdx.x) * k * block_elems;
-  float* dst = o + static_cast<int64_t>(blockIdx.x) * block_elems;
-  for (int64_t e = threadIdx.x; e < block_elems; e += blockDim.x) {
-    float acc = 0.0f;
-    for (int kk = 0; kk < k; ++kk) acc += src[kk * block_elems + e];
-    dst[e] = acc;
+__device__ __forceinline__ void add(float& a, float v) { a += v; }
+__device__ __forceinline__ void add(float4& a, const float4& v) {
+  a.x += v.x;
+  a.y += v.y;
+  a.z += v.z;
+  a.w += v.w;
+}
+
+// x (B, K, per_block) -> o (B, per_block) in units T (float4: the vector
+// form, float: the scalar form); units = B * per_block, one unit a thread,
+// grid-stride. KT = K for K <= kMaxUnrolledK; KT = 0 takes K at run time,
+// kMaxUnrolledK loads at a time. The sum runs k = 0, 1, ..., K-1 from 0.
+template <typename T, int KT>
+__global__ void probe_accumulate_kernel(const T* __restrict__ x, T* __restrict__ o,
+                                        int64_t units, int per_block, int k) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t u = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; u < units;
+       u += stride) {
+    const int64_t b = u / per_block;
+    const T* src = x + b * k * per_block + (u - b * per_block);
+    T acc{};
+    if (KT > 0) {
+      T v[KT > 0 ? KT : 1];
+#pragma unroll
+      for (int i = 0; i < KT; ++i) v[i] = __ldg(src + static_cast<int64_t>(i) * per_block);
+#pragma unroll
+      for (int i = 0; i < KT; ++i) add(acc, v[i]);
+    } else {
+      for (int k0 = 0; k0 < k; k0 += kMaxUnrolledK) {
+        const int m = k - k0 < kMaxUnrolledK ? k - k0 : kMaxUnrolledK;
+        T v[kMaxUnrolledK];
+#pragma unroll
+        for (int i = 0; i < kMaxUnrolledK; ++i) {
+          if (i < m) v[i] = __ldg(src + static_cast<int64_t>(k0 + i) * per_block);
+        }
+#pragma unroll
+        for (int i = 0; i < kMaxUnrolledK; ++i) {
+          if (i < m) add(acc, v[i]);
+        }
+      }
+    }
+    o[u] = acc;
   }
 }
 
-// n floats (a multiple of 4, 16-byte aligned source and destination); each
-// CTA moves kBulkFloats of them: one thread arms the mbarrier with the byte
-// count and issues the bulk copy, every thread waits on phase 0, then the
-// CTA writes the staged floats out.
-__global__ void probe_bulk_copy_kernel(const float* __restrict__ src,
-                                       float* __restrict__ dst, int64_t n) {
-  __shared__ __align__(128) float buf[kBulkFloats];
-  __shared__ __align__(8) uint64_t bar;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kBulkFloats;
-  const int64_t rem = n - base;
-  const int count = static_cast<int>(rem < kBulkFloats ? rem : kBulkFloats);
-  const uint32_t bytes = static_cast<uint32_t>(count) * 4u;
-  const uint32_t bar_addr = static_cast<uint32_t>(__cvta_generic_to_shared(&bar));
-  const uint32_t buf_addr = static_cast<uint32_t>(__cvta_generic_to_shared(buf));
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-                 :: "r"(bar_addr), "r"(1) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+template <typename T>
+void launch_accumulate(const T* x, T* o, int64_t units, int per_block, int k, int threads,
+                       int grid, cudaStream_t stream) {
+  switch (k) {
+#define PROBE_ACC_CASE(KK)                                                   \
+  case KK:                                                                   \
+    probe_accumulate_kernel<T, KK><<<grid, threads, 0, stream>>>(x, o, units, \
+                                                                 per_block, k); \
+    break;
+    PROBE_ACC_CASE(1)
+    PROBE_ACC_CASE(2)
+    PROBE_ACC_CASE(3)
+    PROBE_ACC_CASE(4)
+    PROBE_ACC_CASE(5)
+    PROBE_ACC_CASE(6)
+    PROBE_ACC_CASE(7)
+    PROBE_ACC_CASE(8)
+#undef PROBE_ACC_CASE
+    default:
+      probe_accumulate_kernel<T, 0><<<grid, threads, 0, stream>>>(x, o, units, per_block, k);
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
+}
+
+// n floats (a multiple of 4; 16-byte aligned source and destination) in
+// chunks of `chunk` floats (a multiple of 4): CTA b moves chunks b, b + grid,
+// ..., the last one possibly short. One thread does it all: it arms a
+// stage's mbarrier with the chunk's bytes and issues the bulk load, waits on
+// the barrier's phase, and issues the bulk store of the staged chunk in a
+// bulk group. Both stages are loaded up front; a stage is refilled with the
+// chunk after next once the store from it has read its buffer, so while
+// chunk j is stored the loads of chunks j + 1 and j + 2 are in flight.
+// Dynamic shared memory holds one stage when every CTA has one chunk, two
+// otherwise (kernels/probes.py:bulk_copy_plan). No thread writes the buffer
+// through the generic proxy, so no proxy fence sits between load and store.
+__global__ void __launch_bounds__(32) probe_bulk_copy_kernel(const float* __restrict__ src,
+                                                             float* __restrict__ dst,
+                                                             int64_t n, int chunk) {
+  extern __shared__ __align__(128) float ring[];
+  __shared__ __align__(8) uint64_t full[2];
+  const int64_t n_chunks = (n + chunk - 1) / chunk;
+  if (threadIdx.x != 0 || blockIdx.x >= n_chunks) return;
+  const uint32_t ring_addr = smem_addr(ring);
+  const uint32_t stage_bytes = static_cast<uint32_t>(chunk) * 4u;
+  for (int s = 0; s < 2; ++s) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                 :: "r"(smem_addr(&full[s])), "r"(1) : "memory");
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+
+  auto chunk_bytes = [&](int64_t c) {
+    const int64_t rem = n - c * chunk;
+    return static_cast<uint32_t>(rem < chunk ? rem : chunk) * 4u;
+  };
+  auto load = [&](int64_t c, int s) {
+    const uint32_t bar = smem_addr(&full[s]);
+    const uint32_t bytes = chunk_bytes(c);
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                 :: "r"(bar_addr), "r"(bytes) : "memory");
+                 :: "r"(bar), "r"(bytes) : "memory");
     asm volatile(
         "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
         " [%0], [%1], %2, [%3];"
-        :: "r"(buf_addr), "l"(src + base), "r"(bytes), "r"(bar_addr)
+        :: "r"(ring_addr + s * stage_bytes), "l"(src + c * chunk), "r"(bytes), "r"(bar)
         : "memory");
+  };
+
+  const int64_t step = gridDim.x;
+  load(blockIdx.x, 0);
+  if (blockIdx.x + step < n_chunks) load(blockIdx.x + step, 1);
+  int j = 0;
+  for (int64_t c = blockIdx.x; c < n_chunks; c += step, ++j) {
+    const int s = j & 1;
+    wait_parity(smem_addr(&full[s]), static_cast<uint32_t>(j >> 1) & 1u);
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+                 :: "l"(dst + c * chunk), "r"(ring_addr + s * stage_bytes),
+                    "r"(chunk_bytes(c))
+                 : "memory");
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    if (c + 2 * step < n_chunks) {
+      // the store just issued has read stage s before it is refilled
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      load(c + 2 * step, s);
+    }
   }
-  // Bounded wait: a copy that never completes traps (a launch error the
-  // wrapper raises on) instead of spinning forever.
-  uint32_t done = 0;
-  for (uint32_t spin = 0; !done; ++spin) {
-    if (spin == (1u << 24)) __trap();
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done) : "r"(bar_addr), "r"(0u) : "memory");
-  }
-  for (int e = threadIdx.x; e < count; e += blockDim.x) dst[base + e] = buf[e];
+  // the CTA's shared memory must outlive the reads of its last stores
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
 }
 
 int last_error() { return static_cast<int>(cudaGetLastError()); }
@@ -203,22 +321,28 @@ int probe_block_select(const void* x, const void* sel, void* o, int nsel,
   return last_error();
 }
 
-int probe_accumulate(const void* x, void* o, int nblocks, int k,
-                     int64_t block_elems, void* stream) {
-  if (nblocks > 0) {
-    probe_accumulate_kernel<<<static_cast<unsigned>(nblocks), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<float*>(o), k, block_elems);
+// x (B, K, per_block units) -> o; vector != 0: units are float4 (x and o
+// 16-byte aligned, per_block = R * W / 4), else floats.
+int probe_accumulate(const void* x, void* o, int64_t units, int per_block, int k,
+                     int vector, int threads, int grid, void* stream) {
+  if (units > 0) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (vector) {
+      launch_accumulate(static_cast<const float4*>(x), static_cast<float4*>(o), units,
+                        per_block, k, threads, grid, st);
+    } else {
+      launch_accumulate(static_cast<const float*>(x), static_cast<float*>(o), units,
+                        per_block, k, threads, grid, st);
+    }
   }
   return last_error();
 }
 
-int probe_bulk_copy(const void* src, void* dst, int64_t n, void* stream) {
+int probe_bulk_copy(const void* src, void* dst, int64_t n, int chunk, int grid, int smem,
+                    void* stream) {
   if (n > 0) {
-    unsigned blocks = static_cast<unsigned>((n + kBulkFloats - 1) / kBulkFloats);
-    probe_bulk_copy_kernel<<<blocks, kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(src), static_cast<float*>(dst), n);
+    probe_bulk_copy_kernel<<<grid, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(src), static_cast<float*>(dst), n, chunk);
   }
   return last_error();
 }

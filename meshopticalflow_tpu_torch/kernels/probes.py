@@ -16,12 +16,18 @@ probe fails, as the reference script prints them):
 Each probe runs on the reference script's own inputs (its ``arange`` arrays)
 and is held against the script's numpy expectation and, on the card, against
 its plain version.
+
+``bulk_copy_plan`` and ``accumulate_plan`` are the launches of the bulk-copy
+and grid-accumulation kernels (chunk size and CTAs; vector or scalar form
+and grid), in Python so that the CPU tests reach them.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
+import functools
 import sys
 from typing import Callable, Dict, List, Tuple
 
@@ -38,8 +44,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             "probe_flat_gather": [p, p, p, i64, p],
             "probe_lane_gather": [p, p, p, i64, i32, p],
             "probe_block_select": [p, p, p, i32, i64, p],
-            "probe_accumulate": [p, p, i32, i32, i64, p],
-            "probe_bulk_copy": [p, p, i64, p]}
+            "probe_accumulate": [p, p, i64, i32, i32, i32, i32, i32, p],
+            "probe_bulk_copy": [p, p, i64, i32, i32, i32, p]}
     for name, args in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = args
@@ -48,6 +54,82 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 LIBRARY = CudaLibrary("probes", "probes.cu", _bind)
+
+SMS = 132                  # H100 SXM; the wrappers read the card's own count
+# probe_bulk_copy: chunks of 1 KB (or the whole copy, if smaller) to 16 KB,
+# a multiple of 16 bytes; one chunk per CTA while that spreads the copy
+# over the SMs, else persistent CTAs walking 16 KB chunks through a 2-stage
+# ring in dynamic shared memory (2 x 16 KB stays under the 48 KB a launch
+# gets without opting in).
+BULK_MIN_CHUNK = 256       # floats
+BULK_MAX_CHUNK = 4096      # floats
+BULK_SMEM_BUDGET = 48 * 1024
+BULK_CTAS_PER_SM = 4
+# probe_accumulate: CTAs of ACC_THREADS threads, halved down to
+# ACC_MIN_THREADS while the grid would cover fewer CTAs than the card has
+# SMs; at most ACC_CTAS_PER_SM CTAs an SM (four waves of 2,048 threads),
+# then grid-stride.
+ACC_THREADS = 128
+ACC_MIN_THREADS = 32
+ACC_CTAS_PER_SM = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class BulkCopyPlan:
+    chunk: int        # floats a chunk (a multiple of 4: 16 bytes)
+    grid: int         # CTAs; CTA b moves chunks b, b + grid, ...
+    stages: int       # shared-memory stages: 1 if every CTA has one chunk, else 2
+    smem: int         # dynamic shared memory per CTA, bytes
+
+
+@functools.lru_cache(maxsize=256)
+def bulk_copy_plan(n_floats: int, sm_count: int = SMS) -> BulkCopyPlan:
+    """The launch of one bulk copy of ``n_floats`` (a positive multiple of 4):
+    chunks of about n / SMs floats, rounded up to 16 bytes and held between
+    BULK_MIN_CHUNK (or n) and BULK_MAX_CHUNK; one CTA per chunk up to
+    BULK_CTAS_PER_SM CTAs an SM, past that persistent CTAs with a 2-stage
+    ring."""
+    if n_floats <= 0 or n_floats % 4:
+        raise ValueError(f"bulk_copy_plan: {n_floats} floats, want a positive multiple of 4")
+    per_sm = -(-n_floats // sm_count)
+    chunk = min(n_floats, BULK_MAX_CHUNK, max(BULK_MIN_CHUNK, -(-per_sm // 4) * 4))
+    chunks = -(-n_floats // chunk)
+    per_cta = -(-chunks // (BULK_CTAS_PER_SM * sm_count))
+    grid = -(-chunks // per_cta)            # every CTA within one chunk of the most
+    stages = 1 if per_cta == 1 else 2
+    return BulkCopyPlan(chunk, grid, stages, stages * chunk * 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class AccumulatePlan:
+    vector: bool      # float4 units (R * W % 4 == 0, operands 16-byte aligned) or floats
+    units: int        # output units: B * R * W / 4 vectors or B * R * W floats
+    per_block: int    # units of one output block (R * W / 4 or R * W)
+    threads: int      # per CTA
+    grid: int         # CTAs; a thread walks units t, t + grid * threads, ...
+
+
+@functools.lru_cache(maxsize=256)
+def accumulate_plan(b: int, rw: int, sm_count: int = SMS,
+                    aligned: bool = True) -> AccumulatePlan:
+    """The launch of one grid accumulation of B blocks of R * W = ``rw``
+    floats: the vector form where R * W is a multiple of 4 and the operands
+    are 16-byte aligned, else the scalar form; one thread per unit in CTAs
+    of ACC_THREADS, fewer threads a CTA while that spreads a small grid over
+    more SMs, at most ACC_CTAS_PER_SM CTAs an SM."""
+    vector = aligned and rw % 4 == 0
+    per_block = rw // 4 if vector else rw
+    units = b * per_block
+    threads = ACC_THREADS
+    while threads > ACC_MIN_THREADS and -(-units // threads) < sm_count:
+        threads //= 2
+    grid = max(1, min(-(-units // threads), ACC_CTAS_PER_SM * sm_count))
+    return AccumulatePlan(vector, units, per_block, threads, grid)
+
+
+def sm_count(device: torch.device) -> int:
+    """SMs of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(name: str, *tensors: torch.Tensor) -> bool:
@@ -183,20 +265,25 @@ def block_select(x, sel, block_rows: int):
 
 
 def accumulate(x):
-    """o[b] = sum_k x[b, k] for x (B, K, R, W) -> (B * R, W) (p_accumulate_grid)."""
+    """o[b] = sum_k x[b, k] for x (B, K, R, W) -> (B * R, W), summed in the
+    order k = 0 .. K-1 (p_accumulate_grid)."""
     if x.dim() != 4:
         raise ValueError("accumulate: x (B, K, R, W)")
     if not _check("accumulate", x):
         return accumulate_plain(x)
     b, k, r, w = x.shape
     o = torch.empty((b * r, w), dtype=x.dtype, device=x.device)
-    _launch(accumulate, "probe_accumulate", x, o, b, k, r * w)
+    if o.numel():
+        plan = accumulate_plan(b, r * w, sm_count(x.device),
+                               x.data_ptr() % 16 == 0 and o.data_ptr() % 16 == 0)
+        _launch(accumulate, "probe_accumulate", x, o, plan.units, plan.per_block, k,
+                int(plan.vector), plan.threads, plan.grid)
     return o
 
 
 def bulk_copy(x, start: int, rows: int):
-    """Rows [start, start + rows) of x (N, W) through a bulk async copy into
-    shared memory (p_dma_hbm_to_vmem)."""
+    """Rows [start, start + rows) of x (N, W) through bulk async copies into
+    shared memory and back out (p_dma_hbm_to_vmem)."""
     if x.dim() != 2 or not 0 <= start <= start + rows <= x.shape[0]:
         raise ValueError("bulk_copy: rows out of range")
     w = x.shape[1]
@@ -206,7 +293,13 @@ def bulk_copy(x, start: int, rows: int):
         return bulk_copy_plain(x, start, rows)
     o = torch.empty((rows, w), dtype=x.dtype, device=x.device)
     src = x.view(-1)[start * w:]
-    _launch(bulk_copy, "probe_bulk_copy", src, o, rows * w)
+    if src.data_ptr() % 16 or o.data_ptr() % 16:
+        raise ValueError(f"bulk_copy: source and output must be 16-byte aligned for the bulk "
+                         f"copies (data_ptr % 16: {src.data_ptr() % 16}, {o.data_ptr() % 16})")
+    if o.numel():
+        plan = bulk_copy_plan(rows * w, sm_count(x.device))
+        _launch(bulk_copy, "probe_bulk_copy", src, o, rows * w, plan.chunk, plan.grid,
+                plan.smem)
     return o
 
 

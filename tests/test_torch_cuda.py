@@ -195,6 +195,83 @@ def test_cuda_probe_matches_plain_and_script(name):
     assert res["correct"] and res["matches_plain"], res
 
 
+def _small_ints(shape, seed):
+    """f32 small integers: every sum below is exact in any order, so kernel
+    and plain version must agree bit for bit."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(-64, 64, shape).astype(np.float32)).cuda()
+
+
+# (shape of x, start row, rows copied): one chunk (16 bytes; BULK_MIN_CHUNK
+# floats), a short last chunk (3 chunks and 16 bytes), and a persistent
+# grid with at least 8 chunks on each CTA and a short last one (69 MB)
+BULK_CASES = {"16_bytes": ((8, 4), 3, 1),
+              "one_chunk": ((16, 128), 2, 2),
+              "ragged": ((1000, 4), 5, 3 * 64 + 1),
+              "persistent": ((8 * 4 * 132 * 32 + 8, 128), 7, 8 * 4 * 132 * 32 + 1)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(BULK_CASES))
+def test_cuda_bulk_copy_matches_plain(case):
+    _require_card()
+    shape, start, rows = BULK_CASES[case]
+    x = _small_ints(shape, 11)
+    n = rows * shape[1]
+    plan = probes.bulk_copy_plan(n, probes.sm_count(x.device))
+    chunks = -(-n // plan.chunk)
+    if case in ("16_bytes", "one_chunk"):
+        assert chunks == 1
+    elif case == "ragged":
+        assert chunks > 1 and n % plan.chunk
+    else:
+        assert plan.stages == 2 and chunks >= 8 * plan.grid and n % plan.chunk
+    before = probes.bulk_copy.launches
+    o = probes.bulk_copy(x, start, rows)
+    torch.cuda.synchronize()
+    assert probes.bulk_copy.launches == before + 1
+    assert torch.equal(o, probes.bulk_copy_plain(x, start, rows))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 3, 8, 9])
+@pytest.mark.parametrize("r,w", [(8, 128), (6, 171)])     # R * W = 1,024 and 1,026
+def test_cuda_accumulate_matches_plain(k, r, w):
+    _require_card()
+    x = _small_ints((37, k, r, w), k)
+    plan = probes.accumulate_plan(37, r * w, probes.sm_count(x.device))
+    assert plan.vector == (r * w == 1024)
+    before = probes.accumulate.launches
+    o = probes.accumulate(x)
+    torch.cuda.synchronize()
+    assert probes.accumulate.launches == before + 1
+    assert torch.equal(o, probes.accumulate_plain(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["bulk_copy", "accumulate"])
+def test_cuda_probe_misaligned_operand(kernel):
+    """A contiguous view 4 bytes into its storage: the bulk copy refuses it
+    (cp.async.bulk needs 16-byte aligned addresses) without a launch; the
+    accumulation takes its scalar form and still matches the plain version."""
+    _require_card()
+    flat = _small_ints(1 + 128 * 128, 5)
+    if kernel == "bulk_copy":
+        x = flat[1:].view(128, 128)
+        before = probes.bulk_copy.launches
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            probes.bulk_copy(x, 32, 32)
+        assert probes.bulk_copy.launches == before
+    else:
+        x = flat[1:1 + 4 * 3 * 8 * 128].view(4, 3, 8, 128)
+        assert x.data_ptr() % 16 and not probes.accumulate_plan(
+            4, 1024, probes.sm_count(x.device), aligned=False).vector
+        o = probes.accumulate(x)
+        torch.cuda.synchronize()
+        assert torch.equal(o, probes.accumulate_plain(x))
+    torch.cuda.synchronize()       # the context is still sound
+
+
 @pytest.mark.gpu
 def test_cuda_spectrum_matches_arpack():
     """compute_spectrum's CUDA path (block Lanczos on the banded shift-invert
