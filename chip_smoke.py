@@ -11,11 +11,14 @@ any failure raises, so the run exits non-zero and prints no final ok line.
   3. the probe path: the seven capability-probe kernels through their entry
      point (``python -m meshopticalflow_tpu_torch.kernels.probes``), then each
      against its plain version and the reference script's numpy expectation,
-     with times, bounds and the one-call PyTorch yardstick; the bulk copy
-     and the grid accumulation are timed in turns with their yardstick
-     (clone; torch.sum), at the script's shapes and at a size where bytes
-     set the time (LARGE_PROBES), with their launch plans, rates and bound
-     shares;
+     with times, bounds and the one-call PyTorch yardstick; every probe is
+     timed in turns with its yardstick (torch.mul, torch.gather, torch.take,
+     torch.sum, a slice clone; block select, which has no one-call
+     yardstick, with its plain version: an index_select and an add, with
+     the index_select alone beside it), at the script's shapes and at a
+     size where bytes set the time (LARGE_PROBES), with its launch plan,
+     rate and bound share, and checked for exact equality with its plain
+     version at both;
   4. the reference-binary goldens in float64 on the card: ref_vertex.ply
      and the five goldens of the other bases (Conformal, Connection in its
      three modes, divFree), ref_cube256.png through the CLI default
@@ -145,17 +148,23 @@ _CYCLES_PER_MS = []
 
 
 def _device_sleep(ms: float) -> None:
-    """Keep the device busy for about ``ms`` (torch.cuda._sleep, calibrated)."""
+    """Keep the device busy for at least about ``ms`` (torch.cuda._sleep,
+    calibrated at the fastest of four 10^7-cycle sleeps: a card that idled,
+    as through a build, runs the first at a low clock, and a rate taken
+    there would make every later sleep too short to cover the host)."""
     import torch
 
     if not _CYCLES_PER_MS:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        torch.cuda._sleep(10 ** 6)
-        end.record()
-        end.synchronize()
-        _CYCLES_PER_MS.append(10 ** 6 / max(start.elapsed_time(end), 1e-3))
+        rates = []
+        for _ in range(4):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            torch.cuda._sleep(10 ** 7)
+            end.record()
+            end.synchronize()
+            rates.append(10 ** 7 / max(start.elapsed_time(end), 1e-3))
+        _CYCLES_PER_MS.append(max(rates))
     torch.cuda._sleep(int(ms * _CYCLES_PER_MS[0]))
 
 
@@ -273,7 +282,8 @@ def _probe_need(name: str, args, out):
 
 
 def _probe_library(name: str, args):
-    """One PyTorch call computing the probe's function, or None."""
+    """One PyTorch call computing the probe's function, or None (block
+    select needs an index_select and an add)."""
     import torch
 
     x = args[0]
@@ -286,16 +296,40 @@ def _probe_library(name: str, args):
         "grid accumulation": lambda: torch.sum(x, dim=1),
         "manual HBM->VMEM DMA": lambda: x[args[1]:args[1] + args[2]].clone(),
     }
-    return calls.get(name)   # block select needs an index_select and an add
+    return calls.get(name)
 
 
-# The probes timed in turns with their one-call yardstick, and again at a
-# size where bytes, not the launch, set the time: (x's shape, the probe's
-# further arguments). Bulk copy: rows 65,536:196,608 of (262,144, 128), 67 MB
-# in and 67 MB out; accumulation: (8,192, 3, 8, 128) -> (65,536, 128), 100.7
-# MB in and 33.6 MB out.
-LARGE_PROBES = {"manual HBM->VMEM DMA": ((262144, 128), (65536, 131072)),
-                "grid accumulation": ((8192, 3, 8, 128), ())}
+SELECT = "scalar-prefetch index_map"
+
+
+def _yardstick(probes, name: str, args):
+    """(label, call) the probe is timed in turns with: its one-call library
+    function, else its plain version (block select)."""
+    lib = _probe_library(name, args)
+    if lib is not None:
+        return "library", lib
+    plain = probes.PLAINS[next(p[2] for p in probes.PROBES if p[0] == name)]
+    return "plain (two calls)", lambda: plain(*args)
+
+
+# x's shape at the size where bytes, not the launch, set each probe's time
+# (large_probe_args builds the operands on the card, the script's index
+# patterns scaled up): 134 MB of x but for the accumulation's 101 MB.
+# scale: 134 MB in, 134 MB out. Row gather: rows 3 i mod 262,144 of x for
+# i < 131,072, broadcast over the 128 lanes (67 MB of x read, 67 MB of idx,
+# 67 MB out). Flat gather: x[7 t mod n] for every t (134 MB each of x, idx,
+# o). Lane gather: o[i, j] = x[i, 5 j mod 128] (134 MB each). Block select:
+# 2,048 blocks of 128 rows, sel[i] = 3 i + 1 mod 2,048 for i < 1,024 (67 MB
+# read, 67 MB out). Accumulation: (8,192, 3, 8, 128) -> (65,536, 128),
+# 100.7 MB in and 33.6 MB out. Bulk copy: rows 65,536:196,608, 67 MB in and
+# 67 MB out.
+LARGE_PROBES = {"basic": (262144, 128),
+                "take_along_axis rows (axis 0)": (262144, 128),
+                "flat 1-D gather": (262144 * 128,),
+                "take_along_axis lanes (axis 1)": (262144, 128),
+                SELECT: (262144, 128),
+                "grid accumulation": (8192, 3, 8, 128),
+                "manual HBM->VMEM DMA": (262144, 128)}
 TURN_ROUNDS = {"script": 5, "large": 2}
 
 
@@ -317,31 +351,50 @@ def _plan_of(probes, name: str, args) -> dict:
     sms = probes.sm_count(x.device)
     if name == "grid accumulation":
         b, _, r, w = x.shape
-        return dataclasses.asdict(probes.accumulate_plan(b, r * w, sms, x.data_ptr() % 16 == 0))
-    return dataclasses.asdict(probes.bulk_copy_plan(args[2] * x.shape[1], sms))
+        return dataclasses.asdict(probes.accumulate_plan(b, r * w, sms, probes._aligned(x)))
+    if name == "manual HBM->VMEM DMA":
+        return dataclasses.asdict(probes.bulk_copy_plan(args[2] * x.shape[1], sms))
+    if name == SELECT:
+        return dataclasses.asdict(probes.block_select_plan(
+            args[1].shape[0], args[2] * x.shape[1], sms, probes._aligned(x)))
+    if name == "take_along_axis rows (axis 0)":
+        return dataclasses.asdict(probes.row_gather_plan(*args[1].shape, sms,
+                                                         probes._aligned(*args)))
+    # scale and the flat and lane gathers: one thread per output float in
+    # CTAs of 256 (csrc/probes.cu, kThreads)
+    n = args[1].numel() if len(args) > 1 else x.numel()
+    return dict(threads=256, grid=-(-n // 256))
 
 
 def yardstick_turns(probes, name: str, kernel, args, size: str) -> dict:
-    """A probe and its one-call yardstick in turns at ``args``: both medians
-    and their spread, bytes and bound, the kernel's rate and bound share,
-    and the plan the wrapper takes."""
-    k_ms, l_ms = in_turns(lambda: kernel(*args), _probe_library(name, args),
-                          TURN_ROUNDS[size])
+    """A probe and its yardstick (_yardstick) in turns at ``args``: both
+    medians and their spread, bytes and bound, the kernel's rate and bound
+    share, and the plan the wrapper takes; for block select also the
+    index_select alone (the copy's own time, not a yardstick)."""
+    label, yard = _yardstick(probes, name, args)
+    k_ms, l_ms = in_turns(lambda: kernel(*args), yard, TURN_ROUNDS[size])
     out = kernel(*args)
     nbytes, flops = _probe_need(name, args, out)
     b_ms, b_by = bound(nbytes, flops, "float32")
     ms, lib = float(np.median(k_ms)), float(np.median(l_ms))
     rec = dict(shape=list(args[0].shape), plan=_plan_of(probes, name, args), ms=ms,
-               ms_spread=[min(k_ms), max(k_ms)], library_ms=lib,
+               ms_spread=[min(k_ms), max(k_ms)], yardstick=label, library_ms=lib,
                library_ms_spread=[min(l_ms), max(l_ms)], bytes=nbytes, bound_ms=b_ms,
                bound_by=b_by, tb_s=nbytes / (ms * 1e-3) / 1e12, bound_share=b_ms / ms,
                library_tb_s=nbytes / (lib * 1e-3) / 1e12)
+    copy = ""
+    if name == SELECT:
+        x, sel, rows = args
+        blocks, index = x.view(-1, rows, x.shape[1]), sel.long()
+        rec["index_select_ms"] = median_ms(lambda: blocks.index_select(0, index))
+        copy = f", index_select alone {rec['index_select_ms'] * 1e3:.2f} us"
     phase(3, f"{name} ({kernel.__name__}) at {tuple(args[0].shape)}, in turns x"
              f"{TURN_ROUNDS[size]}: kernel {ms * 1e3:.2f} us "
-             f"[{min(k_ms) * 1e3:.2f}-{max(k_ms) * 1e3:.2f}], library "
-             f"{lib * 1e3:.2f} us [{min(l_ms) * 1e3:.2f}-{max(l_ms) * 1e3:.2f}]; kernel <= "
-             f"library: {ms <= lib}; {rec['tb_s']:.3f} TB/s, bound {b_ms * 1e3:.3f} us "
-             f"({nbytes} B), bound share {rec['bound_share']:.3f}; plan {rec['plan']}")
+             f"[{min(k_ms) * 1e3:.2f}-{max(k_ms) * 1e3:.2f}], {label} "
+             f"{lib * 1e3:.2f} us [{min(l_ms) * 1e3:.2f}-{max(l_ms) * 1e3:.2f}]{copy}; "
+             f"kernel <= {label}: {ms <= lib}; {rec['tb_s']:.3f} TB/s, bound "
+             f"{b_ms * 1e3:.3f} us ({nbytes} B), bound share {rec['bound_share']:.3f}; "
+             f"plan {rec['plan']}")
     return rec
 
 
@@ -350,16 +403,34 @@ def large_probe_args(name: str):
     integers in f32, so every sum is exact."""
     import torch
 
-    shape, rest = LARGE_PROBES[name]
+    shape = LARGE_PROBES[name]
     n = math.prod(shape)
-    x = (torch.arange(n, dtype=torch.int32, device=DEVICE) % 251).to(torch.float32)
-    return (x.view(shape), *rest)
+    x = (torch.arange(n, dtype=torch.int32, device=DEVICE) % 251).to(torch.float32).view(shape)
+
+    def pattern(count: int, mul: int, add: int, mod: int):
+        t = torch.arange(count, dtype=torch.int64, device=DEVICE)
+        return ((t * mul + add) % mod).to(torch.int32)
+
+    if name == "take_along_axis rows (axis 0)":
+        m = shape[0] // 2
+        return x, pattern(m, 3, 0, shape[0])[:, None].expand(m, shape[1]).contiguous()
+    if name == "flat 1-D gather":
+        return x, pattern(n, 7, 0, n).view(-1, 128)
+    if name == "take_along_axis lanes (axis 1)":
+        return x, pattern(n, 5, 0, shape[1]).view(shape)
+    if name == SELECT:
+        rows = 128
+        nblocks = shape[0] // rows
+        return x, pattern(nblocks // 2, 3, 1, nblocks), rows
+    if name == "manual HBM->VMEM DMA":
+        return x, shape[0] // 4, shape[0] // 2
+    return (x,)
 
 
 def probe_phase(probes):
     """Phase 3: the probe entry point with counts from 0, then per-probe
-    checks and times; the bulk copy and the accumulation also in turns with
-    their yardstick, at the script's shapes and at LARGE_PROBES."""
+    checks and times, in turns with the yardstick at the script's shapes
+    and at LARGE_PROBES."""
     import torch
 
     probes.reset_counts()
@@ -386,24 +457,21 @@ def probe_phase(probes):
                    max_abs_err=res["max_abs_err"], issue_ms=issue_ms(lambda: kernel(*args)),
                    plain_ms=median_ms(lambda: plain(*args)), bound_ms=b_ms,
                    bound_by=b_by, bytes=nbytes)
-        if name in LARGE_PROBES:
-            rec["turns"] = yardstick_turns(probes, name, kernel, args, "script")
-            rec.update(ms=rec["turns"]["ms"], library_ms=rec["turns"]["library_ms"])
-            big = large_probe_args(name)
-            got, want = kernel(*big), plain(*big)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            if not torch.equal(got, want):
-                raise RuntimeError(f"probe {name} at {LARGE_PROBES[name][0]}: kernel and "
-                                   f"plain differ by {err}")
-            del got, want
-            rec["large"] = dict(max_abs_err=err,
-                                **yardstick_turns(probes, name, kernel, big, "large"))
-            del big
-            torch.cuda.empty_cache()
-        else:
-            rec.update(ms=median_ms(lambda: kernel(*args)),
-                       library_ms=None if lib is None else median_ms(lib))
+        rec["turns"] = yardstick_turns(probes, name, kernel, args, "script")
+        rec.update(ms=rec["turns"]["ms"],
+                   library_ms=None if lib is None else rec["turns"]["library_ms"])
+        big = large_probe_args(name)
+        got, want = kernel(*big), plain(*big)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise RuntimeError(f"probe {name} at {LARGE_PROBES[name]}: kernel and plain "
+                               f"differ by {err}")
+        del got, want
+        rec["large"] = dict(max_abs_err=err,
+                            **yardstick_turns(probes, name, kernel, big, "large"))
+        del big
+        torch.cuda.empty_cache()
         report[kernel.__name__] = rec
         phase(3, f"{name} ({kernel.__name__}): matches plain and script; kernel "
                  f"{rec['ms'] * 1e3:.2f} us ({rec['issue_ms'] * 1e3:.2f} us issued back "

@@ -4,13 +4,11 @@
 // not a block-by-block copy:
 //
 //   probe_scale         <- p_basic (:30)                   elementwise o = 2 x
-//   probe_row_gather    <- p_take_along_axis_rows (:40)     o[i,j] = x[idx[i,j], j]
+//   probe_row_gather    <- p_take_along_axis_rows (:40, call :48)  o[i,j] = x[idx[i,j], j]
 //   probe_flat_gather   <- p_flat_gather (:58)              o = x[idx]
 //   probe_lane_gather   <- p_dynamic_gather_lanes (:74)     o[i,j] = x[i, idx[i,j]]
-//   probe_block_select  <- p_scalar_prefetch_indexmap (:89) out block b = x block sel[b] + 1;
-//                          the source block is chosen by a device index array
-//                          read in the kernel (sel[blockIdx.x]), Hopper's form of
-//                          the scalar-prefetch index map
+//   probe_block_select  <- p_scalar_prefetch_indexmap (:89, call :103)
+//                          out block b = x block sel[b] + 1
 //   probe_accumulate    <- p_accumulate_grid (:110, call :121)  o[b] = sum_k x[b, k]
 //   probe_bulk_copy     <- p_dma_hbm_to_vmem (:130, call :142)  rows of x through a 1-D
 //                          bulk asynchronous copy global -> shared
@@ -18,6 +16,38 @@
 // Bound: every probe moves a few KB to 512 KB at the reference script's
 // shapes and does at most one add per element, so each is bound by its
 // bytes, and at those sizes by its launch.
+//
+// probe_block_select: the index map that drives the TPU probe's block DMA
+// becomes a block that loads its own index (Hopper has no scalar
+// prefetch): each CTA step covers one tile of a selected block and its
+// warps read sel[b] with one uniform load per tile, not one per element.
+// Bound: the launch at the script's 4 blocks of 64 KB, the bytes (the
+// selected blocks read once, the output written once) at large sizes.
+// Design: the TPU's one grid step per block was one CTA per block here (4
+// of 132 SMs busy at the script's shape, a scalar loop, latency-bound);
+// now kernels/probes.py:block_select_plan cuts every block into tiles of
+// threads x VPT units, with fewer threads a CTA and fewer units a thread
+// while the grid would cover fewer CTAs than the card has SMs (256 CTAs of
+// 32 threads x 2 float4 at the script's shape), and walks a large
+// selection with a capped grid-stride grid. A thread issues all VPT 16-byte
+// loads before its first add and store (one round of latency), neighbouring
+// threads on neighbouring addresses. A scalar form (one float a unit) takes
+// a block of floats not a multiple of 4 or operands not 16-byte aligned.
+// The literal counterpart of a DMA driven by an index map, each tile
+// staged through shared memory by a TMA bulk load and store, ran no faster
+// on an H100 at either size for the same number of CTAs (probe_sweep.py,
+// "select_tma"), so the threads move the data themselves.
+//
+// probe_row_gather: one thread per 16-byte output vector (row i, lanes
+// j .. j+3) in the vector form: one int4 load of idx[i, j:j+4], then one
+// float4 load of x[r, j:j+4] where the four indices name one row r (the
+// script's broadcast index), four 4-byte loads where they do not. Bound: the
+// launch at the script's (64,128) output, the bytes (the rows the indices
+// name, idx and o once each) at large sizes. Design: the lane comes from
+// one 64-bit division per unit, not per float; every index load of a
+// thread is issued, then every x load, then the stores; the grid is spread
+// and capped as block select's (kernels/probes.py:row_gather_plan). A
+// scalar form takes W not a multiple of 4 or operands not 16-byte aligned.
 //
 // probe_accumulate: the sum over the revisited grid axis of the TPU probe,
 // taken in the fixed order k = 0 .. K-1 by one thread per output element,
@@ -89,15 +119,56 @@ __global__ void probe_scale_kernel(const float* __restrict__ x,
   if (i < n) o[i] = 2.0f * x[i];
 }
 
-// x (rows, w), idx and o (m, w)
-__global__ void probe_row_gather_kernel(const float* __restrict__ x,
-                                        const int32_t* __restrict__ idx,
-                                        float* __restrict__ o, int64_t mw,
+// One unit of a row gather: a float of x (scalar form) or, in the vector
+// form, the float4 at lanes [lane, lane + 4) gathered from the rows that the
+// int4 of indices names; where all four name one row (a broadcast index,
+// as the reference script's), one 16-byte load, else four 4-byte loads.
+__device__ __forceinline__ float gather_unit(const float* x, int row, int64_t lane, int w) {
+  return __ldg(x + static_cast<int64_t>(row) * w + lane);
+}
+__device__ __forceinline__ float4 gather_unit(const float* x, int4 row, int64_t lane, int w) {
+  const float* col = x + lane;
+  if (row.x == row.y && row.x == row.z && row.x == row.w) {
+    return __ldg(reinterpret_cast<const float4*>(col + static_cast<int64_t>(row.x) * w));
+  }
+  return make_float4(__ldg(col + static_cast<int64_t>(row.x) * w),
+                     __ldg(col + static_cast<int64_t>(row.y) * w + 1),
+                     __ldg(col + static_cast<int64_t>(row.z) * w + 2),
+                     __ldg(col + static_cast<int64_t>(row.w) * w + 3));
+}
+
+// x (n, w), idx and o (m, w) in units T (float4 with I = int4: the vector
+// form, per_row = w / 4; float with I = int: the scalar form, per_row = w).
+// A CTA step covers a tile of VPT * blockDim.x units, thread k taking units
+// base + k + v * blockDim.x (v < VPT), so neighbouring threads touch
+// neighbouring addresses; tiles are walked grid-stride. Every index load of
+// a thread is issued, then every x load, then the stores.
+template <typename T, typename I, int VPT>
+__global__ void probe_row_gather_kernel(const float* __restrict__ x, const I* __restrict__ idx,
+                                        T* __restrict__ o, int64_t units, int per_row,
                                         int w) {
-  int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= mw) return;
-  int j = static_cast<int>(t % w);
-  o[t] = x[static_cast<int64_t>(idx[t]) * w + j];
+  constexpr int kWidth = sizeof(T) / sizeof(float);
+  const int64_t tile = static_cast<int64_t>(VPT) * blockDim.x;
+  for (int64_t base = blockIdx.x * tile + threadIdx.x; base < units;
+       base += gridDim.x * tile) {
+    I row[VPT];
+#pragma unroll
+    for (int v = 0; v < VPT; ++v) {
+      const int64_t u = base + static_cast<int64_t>(v) * blockDim.x;
+      if (u < units) row[v] = __ldg(idx + u);
+    }
+    T val[VPT];
+#pragma unroll
+    for (int v = 0; v < VPT; ++v) {
+      const int64_t u = base + static_cast<int64_t>(v) * blockDim.x;
+      if (u < units) val[v] = gather_unit(x, row[v], kWidth * (u % per_row), w);
+    }
+#pragma unroll
+    for (int v = 0; v < VPT; ++v) {
+      const int64_t u = base + static_cast<int64_t>(v) * blockDim.x;
+      if (u < units) o[u] = val[v];
+    }
+  }
 }
 
 __global__ void probe_flat_gather_kernel(const float* __restrict__ x,
@@ -118,17 +189,51 @@ __global__ void probe_lane_gather_kernel(const float* __restrict__ x,
   o[t] = x[row * w + idx[t]];
 }
 
-// One CTA per output block; block_elems floats per block.
-__global__ void probe_block_select_kernel(const float* __restrict__ x,
+__device__ __forceinline__ float plus_one(float v) { return v + 1.0f; }
+__device__ __forceinline__ float4 plus_one(float4 v) {
+  return make_float4(v.x + 1.0f, v.y + 1.0f, v.z + 1.0f, v.w + 1.0f);
+}
+
+// Output block b = x's block sel[b] + 1, blocks of block_units units T
+// (float4: the vector form; float: the scalar form). Tile t covers output
+// block t / tiles_per_block, units (t % tiles_per_block) * tile + [0, tile)
+// with tile = VPT * blockDim.x, thread k taking units k + v * blockDim.x
+// (v < VPT); CTAs walk tiles grid-stride. The tile's warps read sel[b] with
+// one uniform load each, then issue all VPT loads before the adds and stores.
+template <typename T, int VPT>
+__global__ void probe_block_select_kernel(const T* __restrict__ x,
                                           const int32_t* __restrict__ sel,
-                                          float* __restrict__ o,
-                                          int64_t block_elems) {
-  const float* src = x + static_cast<int64_t>(sel[blockIdx.x]) * block_elems;
-  float* dst = o + static_cast<int64_t>(blockIdx.x) * block_elems;
-  for (int64_t e = threadIdx.x; e < block_elems; e += blockDim.x) {
-    dst[e] = src[e] + 1.0f;
+                                          T* __restrict__ o, int64_t block_units,
+                                          int tiles_per_block, int64_t n_tiles) {
+  const int64_t tile = static_cast<int64_t>(VPT) * blockDim.x;
+  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int64_t b = t / tiles_per_block;
+    const int64_t first = (t - b * tiles_per_block) * tile + threadIdx.x;
+    const T* src = x + static_cast<int64_t>(__ldg(sel + b)) * block_units;
+    T* dst = o + b * block_units;
+    T val[VPT];
+#pragma unroll
+    for (int v = 0; v < VPT; ++v) {
+      const int64_t u = first + static_cast<int64_t>(v) * blockDim.x;
+      if (u < block_units) val[v] = __ldg(src + u);
+    }
+#pragma unroll
+    for (int v = 0; v < VPT; ++v) {
+      const int64_t u = first + static_cast<int64_t>(v) * blockDim.x;
+      if (u < block_units) dst[u] = plus_one(val[v]);
+    }
   }
 }
+
+// The VPT template argument of a launch: 1, 2, 4 or 8 units a thread.
+#define PROBE_VPT_SWITCH(vpt, LAUNCH) \
+  switch (vpt) {                     \
+    case 1: LAUNCH(1); break;        \
+    case 2: LAUNCH(2); break;        \
+    case 4: LAUNCH(4); break;        \
+    case 8: LAUNCH(8); break;        \
+    default: return static_cast<int>(cudaErrorInvalidValue); \
+  }
 
 __device__ __forceinline__ void add(float& a, float v) { a += v; }
 __device__ __forceinline__ void add(float4& a, const float4& v) {
@@ -277,13 +382,26 @@ int probe_scale(const void* x, void* o, int64_t n, void* stream) {
   return last_error();
 }
 
-int probe_row_gather(const void* x, const void* idx, void* o, int64_t mw,
-                     int w, void* stream) {
-  if (mw > 0) {
-    probe_row_gather_kernel<<<blocks_for(mw), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const int32_t*>(idx),
-        static_cast<float*>(o), mw, w);
+// vector != 0: units are float4 (x, idx and o 16-byte aligned, w a
+// multiple of 4, per_row = w / 4), else floats (per_row = w).
+int probe_row_gather(const void* x, const void* idx, void* o, int64_t units, int per_row,
+                     int w, int vector, int vpt, int threads, int grid, void* stream) {
+  if (units > 0) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const float* xf = static_cast<const float*>(x);
+    if (vector) {
+#define PROBE_ROW_GATHER_VECTOR(V)                                                    \
+  probe_row_gather_kernel<float4, int4, V><<<grid, threads, 0, st>>>(                 \
+      xf, static_cast<const int4*>(idx), static_cast<float4*>(o), units, per_row, w)
+      PROBE_VPT_SWITCH(vpt, PROBE_ROW_GATHER_VECTOR)
+#undef PROBE_ROW_GATHER_VECTOR
+    } else {
+#define PROBE_ROW_GATHER_SCALAR(V)                                                    \
+  probe_row_gather_kernel<float, int, V><<<grid, threads, 0, st>>>(                   \
+      xf, static_cast<const int*>(idx), static_cast<float*>(o), units, per_row, w)
+      PROBE_VPT_SWITCH(vpt, PROBE_ROW_GATHER_SCALAR)
+#undef PROBE_ROW_GATHER_SCALAR
+    }
   }
   return last_error();
 }
@@ -310,13 +428,31 @@ int probe_lane_gather(const void* x, const void* idx, void* o, int64_t mw,
   return last_error();
 }
 
-int probe_block_select(const void* x, const void* sel, void* o, int nsel,
-                       int64_t block_elems, void* stream) {
-  if (nsel > 0) {
-    probe_block_select_kernel<<<static_cast<unsigned>(nsel), kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const int32_t*>(sel),
-        static_cast<float*>(o), block_elems);
+// vector != 0: units are float4 (x and o 16-byte aligned, a block's floats
+// a multiple of 4), else floats; block_units units a block, tiles_per_block
+// tiles of vpt * threads units in each of the nsel output blocks.
+int probe_block_select(const void* x, const void* sel, void* o, int nsel, int64_t block_units,
+                       int tiles_per_block, int vector, int vpt, int threads, int grid,
+                       void* stream) {
+  if (nsel > 0 && block_units > 0) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int32_t* s = static_cast<const int32_t*>(sel);
+    const int64_t n_tiles = static_cast<int64_t>(nsel) * tiles_per_block;
+    if (vector) {
+#define PROBE_SELECT_VECTOR(V)                                                         \
+  probe_block_select_kernel<float4, V><<<grid, threads, 0, st>>>(                      \
+      static_cast<const float4*>(x), s, static_cast<float4*>(o), block_units,         \
+      tiles_per_block, n_tiles)
+      PROBE_VPT_SWITCH(vpt, PROBE_SELECT_VECTOR)
+#undef PROBE_SELECT_VECTOR
+    } else {
+#define PROBE_SELECT_SCALAR(V)                                                         \
+  probe_block_select_kernel<float, V><<<grid, threads, 0, st>>>(                       \
+      static_cast<const float*>(x), s, static_cast<float*>(o), block_units,           \
+      tiles_per_block, n_tiles)
+      PROBE_VPT_SWITCH(vpt, PROBE_SELECT_SCALAR)
+#undef PROBE_SELECT_SCALAR
+    }
   }
   return last_error();
 }

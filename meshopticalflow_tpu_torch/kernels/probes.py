@@ -17,9 +17,10 @@ Each probe runs on the reference script's own inputs (its ``arange`` arrays)
 and is held against the script's numpy expectation and, on the card, against
 its plain version.
 
-``bulk_copy_plan`` and ``accumulate_plan`` are the launches of the bulk-copy
-and grid-accumulation kernels (chunk size and CTAs; vector or scalar form
-and grid), in Python so that the CPU tests reach them.
+``bulk_copy_plan``, ``accumulate_plan``, ``block_select_plan`` and
+``row_gather_plan`` are the launches of the bulk-copy, grid-accumulation,
+block-select and row-gather kernels (chunk size and CTAs; vector or scalar
+form, tile and grid), in Python so that the CPU tests reach them.
 """
 
 from __future__ import annotations
@@ -40,10 +41,10 @@ from meshopticalflow_tpu_torch.kernels.build import CudaLibrary, raise_on, strea
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     sigs = {"probe_scale": [p, p, i64, p],
-            "probe_row_gather": [p, p, p, i64, i32, p],
+            "probe_row_gather": [p, p, p, i64, i32, i32, i32, i32, i32, i32, p],
             "probe_flat_gather": [p, p, p, i64, p],
             "probe_lane_gather": [p, p, p, i64, i32, p],
-            "probe_block_select": [p, p, p, i32, i64, p],
+            "probe_block_select": [p, p, p, i32, i64, i32, i32, i32, i32, i32, p],
             "probe_accumulate": [p, p, i64, i32, i32, i32, i32, i32, p],
             "probe_bulk_copy": [p, p, i64, i32, i32, i32, p]}
     for name, args in sigs.items():
@@ -72,6 +73,16 @@ BULK_CTAS_PER_SM = 4
 ACC_THREADS = 128
 ACC_MIN_THREADS = 32
 ACC_CTAS_PER_SM = 64
+# probe_block_select and probe_row_gather: CTA steps over tiles of
+# TILE_THREADS threads x TILE_VPT units (float4 or float) a thread; while
+# the tiles would cover fewer CTAs than the card has SMs, fewer threads a
+# CTA down to TILE_MIN_THREADS, then fewer units a thread down to 1; at most
+# TILE_CTAS_PER_SM CTAs an SM, then grid-stride. TILE_VPT is 1, 2, 4 or 8
+# (the kernels' template arguments).
+TILE_THREADS = 128
+TILE_MIN_THREADS = 32
+TILE_VPT = 4
+TILE_CTAS_PER_SM = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +136,89 @@ def accumulate_plan(b: int, rw: int, sm_count: int = SMS,
         threads //= 2
     grid = max(1, min(-(-units // threads), ACC_CTAS_PER_SM * sm_count))
     return AccumulatePlan(vector, units, per_block, threads, grid)
+
+
+def _tile_shape(tiles_of, sm_count: int):
+    """(threads, vpt): from TILE_THREADS x TILE_VPT, halve the threads a CTA
+    down to TILE_MIN_THREADS, then the units a thread down to 1, while
+    ``tiles_of(threads * vpt)`` tiles would cover fewer CTAs than
+    ``sm_count``."""
+    threads, vpt = TILE_THREADS, TILE_VPT
+    while tiles_of(threads * vpt) < sm_count and (threads > TILE_MIN_THREADS or vpt > 1):
+        if threads > TILE_MIN_THREADS:
+            threads //= 2
+        else:
+            vpt //= 2
+    return threads, vpt
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSelectPlan:
+    vector: bool          # float4 units (a block's floats % 4 == 0, aligned) or floats
+    block_units: int      # units of one block
+    threads: int          # per CTA
+    vpt: int              # units a thread in one tile
+    tiles_per_block: int  # tiles of threads * vpt units in one output block
+    grid: int             # CTAs; CTA c walks tiles c, c + grid, ...
+
+    @property
+    def tile(self) -> int:
+        return self.threads * self.vpt
+
+
+@functools.lru_cache(maxsize=256)
+def block_select_plan(nsel: int, block_elems: int, sm_count: int = SMS,
+                      aligned: bool = True) -> BlockSelectPlan:
+    """The launch of one block select of ``nsel`` blocks of ``block_elems``
+    floats: the vector form where a block is whole float4s and the operands
+    are 16-byte aligned, else the scalar form; tiles inside one block each
+    (a tile reads one ``sel`` entry), spread over the SMs and capped at
+    TILE_CTAS_PER_SM CTAs an SM."""
+    vector = aligned and block_elems % 4 == 0
+    block_units = block_elems // 4 if vector else block_elems
+    threads, vpt = _tile_shape(lambda tile: nsel * -(-block_units // tile), sm_count)
+    tiles_per_block = -(-block_units // (threads * vpt))
+    grid = max(1, min(nsel * tiles_per_block, TILE_CTAS_PER_SM * sm_count))
+    return BlockSelectPlan(vector, block_units, threads, vpt, tiles_per_block, grid)
+
+
+@dataclasses.dataclass(frozen=True)
+class RowGatherPlan:
+    vector: bool      # float4 units (W % 4 == 0, operands 16-byte aligned) or floats
+    units: int        # output units: M * W / 4 vectors or M * W floats
+    per_row: int      # units of one row (W / 4 or W)
+    threads: int      # per CTA
+    vpt: int          # units a thread in one tile
+    grid: int         # CTAs; CTA c walks tiles c, c + grid, ...
+
+    @property
+    def tile(self) -> int:
+        return self.threads * self.vpt
+
+
+@functools.lru_cache(maxsize=256)
+def row_gather_plan(m: int, w: int, sm_count: int = SMS,
+                    aligned: bool = True) -> RowGatherPlan:
+    """The launch of one row gather into an (``m``, ``w``) output: the vector
+    form where W is a multiple of 4 and the operands are 16-byte aligned,
+    else the scalar form; tiles spread over the SMs and capped at
+    TILE_CTAS_PER_SM CTAs an SM."""
+    vector = aligned and w % 4 == 0
+    per_row = w // 4 if vector else w
+    units = m * per_row
+    threads, vpt = _tile_shape(lambda tile: -(-units // tile), sm_count)
+    grid = max(1, min(-(-units // (threads * vpt)), TILE_CTAS_PER_SM * sm_count))
+    return RowGatherPlan(vector, units, per_row, threads, vpt, grid)
+
+
+def clear_plans() -> None:
+    """Forget the cached plans (after a launch constant changed)."""
+    for plan in (bulk_copy_plan, accumulate_plan, block_select_plan, row_gather_plan):
+        plan.cache_clear()
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def sm_count(device: torch.device) -> int:
@@ -224,7 +318,11 @@ def row_gather(x, idx):
     if not _check("row_gather", x, idx):
         return row_gather_plain(x, idx)
     o = torch.empty(idx.shape, dtype=x.dtype, device=x.device)
-    _launch(row_gather, "probe_row_gather", x, idx, o, idx.numel(), x.shape[1])
+    if o.numel():
+        plan = row_gather_plan(idx.shape[0], idx.shape[1], sm_count(x.device),
+                               _aligned(x, idx, o))
+        _launch(row_gather, "probe_row_gather", x, idx, o, plan.units, plan.per_row,
+                x.shape[1], int(plan.vector), plan.vpt, plan.threads, plan.grid)
     return o
 
 
@@ -259,8 +357,12 @@ def block_select(x, sel, block_rows: int):
         return block_select_plain(x, sel, block_rows)
     o = torch.empty((sel.shape[0] * block_rows, x.shape[1]), dtype=x.dtype,
                     device=x.device)
-    _launch(block_select, "probe_block_select", x, sel, o, sel.shape[0],
-            block_rows * x.shape[1])
+    if o.numel():
+        plan = block_select_plan(sel.shape[0], block_rows * x.shape[1], sm_count(x.device),
+                                 _aligned(x, o))
+        _launch(block_select, "probe_block_select", x, sel, o, sel.shape[0],
+                plan.block_units, plan.tiles_per_block, int(plan.vector), plan.vpt,
+                plan.threads, plan.grid)
     return o
 
 
@@ -274,8 +376,7 @@ def accumulate(x):
     b, k, r, w = x.shape
     o = torch.empty((b * r, w), dtype=x.dtype, device=x.device)
     if o.numel():
-        plan = accumulate_plan(b, r * w, sm_count(x.device),
-                               x.data_ptr() % 16 == 0 and o.data_ptr() % 16 == 0)
+        plan = accumulate_plan(b, r * w, sm_count(x.device), _aligned(x, o))
         _launch(accumulate, "probe_accumulate", x, o, plan.units, plan.per_block, k,
                 int(plan.vector), plan.threads, plan.grid)
     return o

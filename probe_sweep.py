@@ -1,19 +1,23 @@
-"""Launch constants and ablations of the bulk-copy and grid-accumulation
-probe kernels, on one NVIDIA GPU.
+"""Launch constants and ablations of the bulk-copy, grid-accumulation,
+block-select and row-gather probe kernels, on one NVIDIA GPU.
 
     python3 probe_sweep.py
 
-Every case is timed in turns with its one-call yardstick
-(``x[a:b].clone()``; ``torch.sum(x, dim=1)``), as ``chip_smoke.py`` phase 3
-times the configuration the port ships, at the reference script's shapes
-and at the byte-bound sizes of ``chip_smoke.LARGE_PROBES``:
+Every case is timed in turns with its yardstick (``x[a:b].clone()``;
+``torch.sum(x, dim=1)``; block select's plain version, an index_select and
+an add; ``torch.gather``), as ``chip_smoke.py`` phase 3 times the
+configuration the port ships, at the reference script's shapes and at the
+byte-bound sizes of ``chip_smoke.LARGE_PROBES``:
 
-- SWEEP: ``kernels/probes.py``'s ``BULK_*`` / ``ACC_*`` launch constants,
-  each checked for exact equality with the plain version;
-- ABLATIONS: forms of ``probe_bulk_copy_kernel`` built from
-  ``csrc/probes.cu`` with a part taken out or changed (into ``_build/``),
-  which say where its time goes: the launch alone, the bulk load alone, a
-  4-stage ring.
+- SWEEP: ``kernels/probes.py``'s ``BULK_*`` / ``ACC_*`` / ``TILE_*`` launch
+  constants, each checked for exact equality with the plain version;
+- ABLATIONS: kernels built from ``csrc/probes.cu`` with a part taken out or
+  changed (into ``_build/``), which say where the time goes: the launch
+  alone (bulk copy, block select, row gather), the bulk load alone and a
+  4-stage ring (bulk copy), block select through a TMA-staged tile in
+  shared memory, row gather without its one-row float4 fast path, and the
+  two kernels' earlier designs (one CTA per selected block; one thread per
+  gathered float).
 
 Prints one line per case and writes ``chiprun_out/probe_sweep.json``.
 """
@@ -27,13 +31,20 @@ import sys
 import chip_smoke as smoke
 
 DMA, ACC = "manual HBM->VMEM DMA", "grid accumulation"
+SEL, ROW = "scalar-prefetch index_map", "take_along_axis rows (axis 0)"
 # (probe, size, {constant: value})
 SWEEP = ([(DMA, "script", dict(BULK_MIN_CHUNK=c)) for c in (64, 128, 256, 512, 1024, 4096)]
          + [(DMA, "large", dict(BULK_CTAS_PER_SM=k, BULK_MAX_CHUNK=c)) for k, c in
             ((2, 4096), (4, 4096), (6, 4096), (4, 2048), (8, 2048), (12, 1024))]
          + [(ACC, "script", dict(ACC_MIN_THREADS=t)) for t in (32, 64, 128)]
          + [(ACC, "large", dict(ACC_THREADS=t, ACC_CTAS_PER_SM=k)) for t, k in
-            ((128, 16), (128, 32), (128, 64), (256, 32), (128, 10 ** 6))])
+            ((128, 16), (128, 32), (128, 64), (256, 32), (128, 10 ** 6))]
+         + [(p, "script", dict(TILE_MIN_THREADS=t, TILE_VPT=v)) for p in (SEL, ROW)
+            for t, v in ((32, 1), (32, 2), (32, 4), (64, 4), (128, 4), (32, 8))]
+         + [(p, "large", dict(TILE_THREADS=t, TILE_VPT=v, TILE_CTAS_PER_SM=k))
+            for p in (SEL, ROW)
+            for t, v, k in ((128, 4, 16), (128, 4, 8), (128, 4, 32), (128, 2, 16),
+                            (128, 8, 16), (256, 4, 8), (256, 2, 16), (128, 4, 10 ** 6))])
 
 _STORE = '''    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
                  :: "l"(dst + c * chunk), "r"(ring_addr + s * stage_bytes),
@@ -42,10 +53,85 @@ _STORE = '''    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], 
     asm volatile("cp.async.bulk.commit_group;" ::: "memory");
 '''
 _HEAD = "  extern __shared__ __align__(128) float ring[];\n"
-# name -> ((old, new) text replacements in csrc/probes.cu, constants, exact?)
+_SEL_HEAD = "  const int64_t tile = static_cast<int64_t>(VPT) * blockDim.x;\n  for (int64_t t = "
+_ROW_HEAD = "  constexpr int kWidth = sizeof(T) / sizeof(float);\n"
+# Block select with the tile staged through shared memory by the TMA, the
+# literal form of an index map driving a DMA: one CTA a tile (no grid
+# stride), sel read by the issuing thread, a 1-D bulk load on an expect_tx
+# mbarrier, +1 by the threads, a proxy fence, a 1-D bulk store. Vector
+# form only (16-byte aligned tiles).
+_SEL_TMA_KERNEL = r'''
+__global__ void probe_block_select_tma_kernel(const float* __restrict__ x,
+                                              const int32_t* __restrict__ sel,
+                                              float* __restrict__ o, int64_t block_elems,
+                                              int tile, int tiles_per_block) {
+  extern __shared__ __align__(128) float buf[];
+  __shared__ __align__(8) uint64_t full;
+  const int64_t b = blockIdx.x / tiles_per_block;
+  const int64_t first = (blockIdx.x - b * tiles_per_block) * static_cast<int64_t>(tile);
+  const int64_t rem = block_elems - first;
+  const uint32_t bytes = static_cast<uint32_t>(rem < tile ? rem : tile) * 4u;
+  const uint32_t bar = smem_addr(&full);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(1) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(bar), "r"(bytes) : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];"
+        :: "r"(smem_addr(buf)), "l"(x + static_cast<int64_t>(sel[b]) * block_elems + first),
+           "r"(bytes), "r"(bar)
+        : "memory");
+  }
+  __syncthreads();
+  wait_parity(bar, 0);
+  float4* v = reinterpret_cast<float4*>(buf);
+  for (uint32_t e = threadIdx.x; e < bytes / 16u; e += blockDim.x) v[e] = plus_one(v[e]);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+                 :: "l"(o + b * block_elems + first), "r"(smem_addr(buf)), "r"(bytes)
+                 : "memory");
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  }
+}
+
+'''
+_SEL_TMA_LAUNCH = """      probe_block_select_tma_kernel<<<nsel * tiles_per_block, threads,
+                                      vpt * threads * 16, st>>>(
+          static_cast<const float*>(x), s, static_cast<float*>(o), block_units * 4,
+          vpt * threads * 4, tiles_per_block);
+"""
+# The earlier designs of the two kernels: one CTA of 256 threads per
+# selected block walking it with 4-byte loads and stores; one thread per
+# gathered float, its lane from a 64-bit remainder.
+_EARLIER_KERNELS = r'''
+__global__ void probe_block_select_cta_kernel(const float* __restrict__ x,
+                                              const int32_t* __restrict__ sel,
+                                              float* __restrict__ o, int64_t block_elems) {
+  const float* src = x + static_cast<int64_t>(sel[blockIdx.x]) * block_elems;
+  float* dst = o + static_cast<int64_t>(blockIdx.x) * block_elems;
+  for (int64_t e = threadIdx.x; e < block_elems; e += blockDim.x) dst[e] = src[e] + 1.0f;
+}
+
+__global__ void probe_row_gather_float_kernel(const float* __restrict__ x,
+                                              const int32_t* __restrict__ idx,
+                                              float* __restrict__ o, int64_t mw, int w) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t < mw) o[t] = x[static_cast<int64_t>(idx[t]) * w + static_cast<int>(t % w)];
+}
+
+'''
+_LAST_ERROR = "int last_error() {"
+# name -> ((old, new) text replacements in csrc/probes.cu, constants, exact?,
+#          probes timed)
 ABLATIONS = {
-    "launch_only": ([(_HEAD, "  return;\n" + _HEAD)], {}, False),
-    "load_only": ([(_STORE, "")], {}, False),
+    "launch_only": ([(_HEAD, "  return;\n" + _HEAD), (_SEL_HEAD, "  return;\n" + _SEL_HEAD),
+                     (_ROW_HEAD, _ROW_HEAD + "  return;\n")], {}, False, (DMA, SEL, ROW)),
+    "load_only": ([(_STORE, "")], {}, False, (DMA,)),
     # 4 stages of 8 KB, two stores in flight before a stage is refilled
     "ring4": ([("uint64_t full[2];", "uint64_t full[4];"),
                ("for (int s = 0; s < 2; ++s) {", "for (int s = 0; s < 4; ++s) {"),
@@ -56,7 +142,22 @@ ABLATIONS = {
                 'asm volatile("cp.async.bulk.wait_group.read 2;" ::: "memory");\n      '
                 "load(c + 2 * step, (j + 2) & 3);"),
                ("<<<grid, 32, smem,", "<<<grid, 32, 2 * smem,")],
-              dict(BULK_MAX_CHUNK=2048, BULK_CTAS_PER_SM=8), True),
+              dict(BULK_MAX_CHUNK=2048, BULK_CTAS_PER_SM=8), True, (DMA,)),
+    "select_tma": ([(_LAST_ERROR, _SEL_TMA_KERNEL + _LAST_ERROR),
+                    ("      PROBE_VPT_SWITCH(vpt, PROBE_SELECT_VECTOR)\n", _SEL_TMA_LAUNCH)],
+                   {}, True, (SEL,)),
+    "gather_no_fast_path": ([("if (row.x == row.y && row.x == row.z && row.x == row.w) {",
+                              "if (false) {")], {}, True, (ROW,)),
+    "earlier_designs": ([(_LAST_ERROR, _EARLIER_KERNELS + _LAST_ERROR),
+                         ("      PROBE_VPT_SWITCH(vpt, PROBE_SELECT_VECTOR)\n",
+                          "      probe_block_select_cta_kernel<<<nsel, kThreads, 0, st>>>(\n"
+                          "          static_cast<const float*>(x), s, static_cast<float*>(o),"
+                          " block_units * 4);\n"),
+                         ("      PROBE_VPT_SWITCH(vpt, PROBE_ROW_GATHER_VECTOR)\n",
+                          "      probe_row_gather_float_kernel<<<blocks_for(units * 4), kThreads,"
+                          " 0, st>>>(\n          xf, static_cast<const int32_t*>(idx),"
+                          " static_cast<float*>(o), units * 4, w);\n")],
+                        {}, True, (SEL, ROW)),
 }
 
 
@@ -80,8 +181,7 @@ def _case(probes, probe: str, size: str, consts: dict, exact: bool = True) -> di
     saved = {k: getattr(probes, k) for k in consts}
     for k, v in consts.items():
         setattr(probes, k, v)
-    probes.bulk_copy_plan.cache_clear()
-    probes.accumulate_plan.cache_clear()
+    probes.clear_plans()
     try:
         args = (probes.probe_args(builder, torch.device(smoke.DEVICE))[0]
                 if size == "script" else smoke.large_probe_args(probe))
@@ -91,8 +191,7 @@ def _case(probes, probe: str, size: str, consts: dict, exact: bool = True) -> di
     finally:
         for k, v in saved.items():
             setattr(probes, k, v)
-        probes.bulk_copy_plan.cache_clear()
-        probes.accumulate_plan.cache_clear()
+        probes.clear_plans()
         torch.cuda.empty_cache()
 
 
@@ -113,13 +212,14 @@ def main() -> int:
         print(f"sweep {probe} {size} {consts}:", flush=True)
         out.append(dict(probe=probe, size=size, constants=consts,
                         **_case(probes, probe, size, consts)))
-    for name, (_, consts, exact) in ABLATIONS.items():
+    for name, (_, consts, exact, timed) in ABLATIONS.items():
         probes.LIBRARY = ablated[name]
         try:
-            for size in ("script", "large"):
-                print(f"ablation {name} {size} {consts}:", flush=True)
-                out.append(dict(probe=DMA, size=size, ablation=name, constants=consts,
-                                **_case(probes, DMA, size, consts, exact)))
+            for probe in timed:
+                for size in ("script", "large"):
+                    print(f"ablation {name} {probe} {size} {consts}:", flush=True)
+                    out.append(dict(probe=probe, size=size, ablation=name, constants=consts,
+                                    **_case(probes, probe, size, consts, exact)))
         finally:
             probes.LIBRARY = shipped
     with open(os.path.join(os.path.dirname(smoke.WORK), "probe_sweep.json"), "w") as f:

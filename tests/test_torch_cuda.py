@@ -272,6 +272,104 @@ def test_cuda_probe_misaligned_operand(kernel):
     torch.cuda.synchronize()       # the context is still sound
 
 
+# (number of blocks, block rows, W, sel): the script's shape with a repeated
+# entry; a block of floats not a multiple of 4 (3 x 171: the scalar form);
+# W = 171 in blocks of whole float4s (4 x 171); a selection the capped grid
+# walks (200 of 600 blocks three times over: 4,800 tiles, at most 4,224 CTAs)
+SELECT_CASES = {"script": ((8, 128, 128), [3, 1, 4, 1]),
+                "scalar": ((5, 3, 171), [4, 4, 0, 2, 4]),
+                "ragged_w": ((4, 4, 171), [1, 3, 3]),
+                "grid_stride": ((600, 128, 128), list(range(1, 600, 3)) * 3)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SELECT_CASES))
+def test_cuda_block_select_matches_plain(case):
+    _require_card()
+    (nblocks, rows, w), sel = SELECT_CASES[case]
+    x = _small_ints((nblocks * rows, w), 13)
+    sel = torch.tensor(sel, dtype=torch.int32, device="cuda")
+    plan = probes.block_select_plan(sel.shape[0], rows * w, probes.sm_count(x.device))
+    assert plan.vector == (case != "scalar")
+    if case == "grid_stride":
+        assert sel.shape[0] * plan.tiles_per_block > plan.grid
+    before = probes.block_select.launches
+    o = probes.block_select(x, sel, rows)
+    torch.cuda.synchronize()
+    assert probes.block_select.launches == before + 1
+    assert torch.equal(o, probes.block_select_plain(x, sel, rows))
+
+
+def _row_index(n, m, w, broadcast, seed=17):
+    """Row indices: one row across each output row (the script's broadcast
+    pattern, 3 i mod n), or a random row per element, so the four lanes of
+    an output vector name different rows."""
+    if broadcast:
+        rows = torch.arange(m, dtype=torch.int32) * 3 % n
+        return rows[:, None].expand(m, w).contiguous().cuda()
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, n, (m, w)).astype(np.int32)).cuda()
+
+
+# (n, m, W, broadcast index): the script's shape; lanes naming different
+# rows; W = 171 (the scalar form); a grid the cap makes stride (80,000 x 32
+# vectors: 5,000 tiles of 512, at most 4,224 CTAs), half its rows broadcast
+GATHER_CASES = {"script": (256, 64, 128, True), "mixed_rows": (256, 64, 128, False),
+                "scalar": (50, 37, 171, False), "grid_stride": (4096, 80000, 128, None)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(GATHER_CASES))
+def test_cuda_row_gather_matches_plain(case):
+    _require_card()
+    n, m, w, broadcast = GATHER_CASES[case]
+    x = _small_ints((n, w), 19)
+    if broadcast is None:
+        idx = _row_index(n, m, w, False)
+        idx[::2] = _row_index(n, m, w, True)[::2]
+    else:
+        idx = _row_index(n, m, w, broadcast)
+    plan = probes.row_gather_plan(m, w, probes.sm_count(x.device))
+    assert plan.vector == (case != "scalar")
+    if case == "grid_stride":
+        assert plan.units > plan.grid * plan.tile
+    before = probes.row_gather.launches
+    o = probes.row_gather(x, idx)
+    torch.cuda.synchronize()
+    assert probes.row_gather.launches == before + 1
+    assert torch.equal(o, probes.row_gather_plain(x, idx))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["block_select", "row_gather"])
+def test_cuda_new_probes_misaligned_operand(kernel):
+    """A contiguous view 4 bytes into its storage takes the scalar form and
+    still matches the plain version bit for bit."""
+    _require_card()
+    sms = probes.sm_count(torch.device("cuda"))
+    if kernel == "block_select":
+        x = _small_ints(1 + 8 * 128 * 128, 23)[1:].view(8 * 128, 128)
+        sel = torch.tensor([3, 1, 4, 1], dtype=torch.int32, device="cuda")
+        assert x.data_ptr() % 16 and not probes.block_select_plan(
+            4, 128 * 128, sms, aligned=False).vector
+        before = probes.block_select.launches
+        o = probes.block_select(x, sel, 128)
+        torch.cuda.synchronize()
+        assert probes.block_select.launches == before + 1
+        assert torch.equal(o, probes.block_select_plain(x, sel, 128))
+    else:
+        x = _small_ints((256, 128), 29)
+        idx = torch.empty(1 + 64 * 128, dtype=torch.int32, device="cuda")[1:].view(64, 128)
+        idx.copy_(_row_index(256, 64, 128, False))
+        assert idx.data_ptr() % 16 and not probes.row_gather_plan(
+            64, 128, sms, aligned=False).vector
+        before = probes.row_gather.launches
+        o = probes.row_gather(x, idx)
+        torch.cuda.synchronize()
+        assert probes.row_gather.launches == before + 1
+        assert torch.equal(o, probes.row_gather_plain(x, idx))
+
+
 @pytest.mark.gpu
 def test_cuda_spectrum_matches_arpack():
     """compute_spectrum's CUDA path (block Lanczos on the banded shift-invert

@@ -2,15 +2,81 @@
 
 On CPU tensors each probe wrapper takes its plain PyTorch version; those are
 held here to the numpy expectations of the reference script
-scripts/probe_pallas.py on its own inputs. The CUDA kernels are held to the
+scripts/probe_pallas.py on its own inputs, and to the script's Pallas
+kernels themselves, run in interpret mode. The CUDA kernels are held to the
 plain versions on the card by tests/test_torch_cuda.py and chip_smoke.py.
 """
+
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 from meshopticalflow_tpu_torch.kernels import probes
+
+PROBE_SCRIPT = Path(__file__).resolve().parent.parent / "scripts" / "probe_pallas.py"
+# (function of scripts/probe_pallas.py, name of the port's probe). Left out:
+# p_accumulate_grid, whose kernel stores the (1, 1, 8, 128) block of x into
+# the (8, 128) output ref; Pallas' interpreter refuses that store
+# ("ValueError: Invalid shape for `swap`", JAX 0.9.0), so the probe runs
+# only under Mosaic on a TPU. The port's accumulation is held to the
+# script's numpy expectation by test_probe_plain_version_matches_script.
+JAX_PROBES = [("p_basic", "basic"),
+              ("p_take_along_axis_rows", "take_along_axis rows (axis 0)"),
+              ("p_flat_gather", "flat 1-D gather"),
+              ("p_dynamic_gather_lanes", "take_along_axis lanes (axis 1)"),
+              ("p_scalar_prefetch_indexmap", "scalar-prefetch index_map"),
+              ("p_dma_hbm_to_vmem", "manual HBM->VMEM DMA")]
+
+
+@pytest.fixture(scope="module")
+def probe_script():
+    spec = importlib.util.spec_from_file_location("probe_pallas_script", PROBE_SCRIPT)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("fn_name,name", JAX_PROBES, ids=[p[1] for p in JAX_PROBES])
+def test_plain_version_matches_jax_probe_in_interpret_mode(probe_script, monkeypatch,
+                                                           fn_name, name):
+    """The script's own probe, its pallas_call run with interpret=True, on its
+    own operands: the port's plain version gives the same array exactly
+    (small integers in f32, plus 1.0), and the script's operands are the
+    port's inputs."""
+    calls = []
+    pallas_call = pl.pallas_call
+
+    def interpreted(*args, **kwargs):
+        call = pallas_call(*args, **{**kwargs, "interpret": True})
+
+        def run(*operands):
+            out = call(*operands)
+            calls.append(([np.asarray(o) for o in operands], np.asarray(out)))
+            return out
+        return run
+
+    monkeypatch.setattr(pl, "pallas_call", interpreted)
+    getattr(probe_script, fn_name)()
+    assert len(calls) == 1
+    operands, jax_out = calls[0]
+    _, _, kernel, builder = next(p for p in probes.PROBES if p[0] == name)
+    args, _ = probes.probe_args(builder, torch.device("cpu"))
+    port_arrays = [a.numpy() for a in args if isinstance(a, torch.Tensor)]
+    assert len(operands) == len(port_arrays)
+    for op in operands:
+        assert any(op.dtype == a.dtype and np.array_equal(op, a) for a in port_arrays)
+    got = probes.PLAINS[kernel](*args).numpy()
+    assert got.dtype == jax_out.dtype
+    np.testing.assert_array_equal(got, jax_out)
+
+
+def test_jax_parity_covers_every_probe_but_the_accumulation():
+    names = {p[0] for p in probes.PROBES}
+    assert names - {n for _, n in JAX_PROBES} == {"grid accumulation"}
 
 
 @pytest.mark.parametrize("name,ref,kernel,builder", probes.PROBES,
@@ -165,3 +231,142 @@ def test_accumulate_plan_spreads_the_script_shape_and_strides_a_large_one():
     assert large.threads == probes.ACC_THREADS
     assert large.grid == probes.ACC_CTAS_PER_SM * 132
     assert large.units > large.grid * large.threads
+
+
+# The launch plans of the block-select and row-gather kernels, checked on
+# the host by walking them as the kernels do.
+
+def _select_walk(plan, x, sel):
+    """The output of csrc/probes.cu:probe_block_select_kernel under ``plan``,
+    and how often each output float is written: CTA c takes tiles c, c +
+    grid, ...; tile t covers block b = t // tiles_per_block, units
+    (t % tiles_per_block) * tile + k + v * threads for thread k, v < vpt,
+    read from block sel[b]."""
+    width = 4 if plan.vector else 1
+    src = x.reshape(-1, plan.block_units, width)
+    out = np.full((len(sel), plan.block_units, width), np.nan, np.float32)
+    hits = np.zeros(out.shape, np.int64)
+    lanes = (np.arange(plan.threads)[:, None] + np.arange(plan.vpt)[None, :] * plan.threads)
+    n_tiles = len(sel) * plan.tiles_per_block
+    for c in range(plan.grid):
+        for t in range(c, n_tiles, plan.grid):
+            b = t // plan.tiles_per_block
+            u = (t - b * plan.tiles_per_block) * plan.tile + lanes.ravel()
+            u = u[u < plan.block_units]
+            out[b, u] = src[sel[b], u] + 1.0
+            hits[b, u] += 1
+    return out.reshape(-1, x.shape[1]), hits
+
+
+# (number of blocks, block rows, W, sel): the script's shape, a block of
+# floats not a multiple of 4 (3 x 171), W = 171 in a block of whole float4s
+# (4 x 171), repeated entries, one selected block of one float
+SELECT_CASES = [(8, 128, 128, [3, 1, 4, 1]), (5, 3, 171, [4, 4, 0, 2, 4]),
+                (4, 4, 171, [1, 3, 3]), (600, 8, 128, list(range(1, 600, 3)) * 2),
+                (2, 1, 1, [1])]
+
+
+@pytest.mark.parametrize("sms", [132, 1])
+@pytest.mark.parametrize("case", range(len(SELECT_CASES)))
+def test_block_select_plan_form_and_coverage(case, sms):
+    nblocks, rows, w, sel = SELECT_CASES[case]
+    x = np.arange(nblocks * rows * w, dtype=np.float32).reshape(nblocks * rows, w) % 251
+    plan = probes.block_select_plan(len(sel), rows * w, sms)
+    assert plan.vector == ((rows * w) % 4 == 0)
+    assert plan.block_units * (4 if plan.vector else 1) == rows * w
+    assert plan.tile == plan.threads * plan.vpt and plan.vpt in (1, 2, 4, 8)
+    assert plan.tiles_per_block == -(-plan.block_units // plan.tile)
+    out, hits = _select_walk(plan, x, np.asarray(sel))
+    assert (hits == 1).all()
+    want = probes.block_select_plain(torch.from_numpy(x), torch.tensor(sel, dtype=torch.int32),
+                                     rows).numpy()
+    np.testing.assert_array_equal(out, want)
+    assert probes.TILE_MIN_THREADS <= plan.threads <= probes.TILE_THREADS
+    assert 1 <= plan.grid <= probes.TILE_CTAS_PER_SM * sms
+
+
+def _gather_walk(plan, x, idx):
+    """The output of csrc/probes.cu:probe_row_gather_kernel under ``plan``
+    and the writes per output float: tile s (s = c, c + grid, ... for CTA
+    c) covers units s * tile + k + v * threads; unit u is row u // per_row,
+    lanes width * (u % per_row) + [0, width)."""
+    width = 4 if plan.vector else 1
+    m, w = idx.shape
+    out = np.full(m * w, np.nan, np.float32)
+    hits = np.zeros(m * w, np.int64)
+    lanes = (np.arange(plan.threads)[:, None] + np.arange(plan.vpt)[None, :] * plan.threads)
+    n_tiles = -(-plan.units // plan.tile)
+    for c in range(plan.grid):
+        for s in range(c, n_tiles, plan.grid):
+            u = s * plan.tile + lanes.ravel()
+            u = u[u < plan.units]
+            for q in range(width):
+                row, col = u // plan.per_row, width * (u % plan.per_row) + q
+                out[row * w + col] = x[idx[row, col], col]
+                hits[row * w + col] += 1
+    return out.reshape(m, w), hits
+
+
+def _rows_index(n, m, w, seed, broadcast):
+    rng = np.random.default_rng(seed)
+    if broadcast:
+        return np.ascontiguousarray(np.broadcast_to((np.arange(m) * 3 % n)[:, None], (m, w)),
+                                    dtype=np.int32)
+    return rng.integers(0, n, (m, w)).astype(np.int32)
+
+
+# (n, m, W, broadcast index): the script's shape, lanes of one output
+# vector naming different rows, W = 171 (scalar form), a large grid, one
+# float, W = 4
+GATHER_CASES = [(256, 64, 128, True), (256, 64, 128, False), (50, 37, 171, False),
+                (3000, 20000, 16, False), (1, 1, 1, True), (9, 7, 4, True)]
+
+
+@pytest.mark.parametrize("sms", [132, 1])
+@pytest.mark.parametrize("case", range(len(GATHER_CASES)))
+def test_row_gather_plan_form_and_coverage(case, sms):
+    n, m, w, broadcast = GATHER_CASES[case]
+    x = np.arange(n * w, dtype=np.float32).reshape(n, w)
+    idx = _rows_index(n, m, w, case, broadcast)
+    plan = probes.row_gather_plan(m, w, sms)
+    assert plan.vector == (w % 4 == 0)
+    assert plan.per_row * (4 if plan.vector else 1) == w and plan.units == m * plan.per_row
+    assert plan.tile == plan.threads * plan.vpt and plan.vpt in (1, 2, 4, 8)
+    out, hits = _gather_walk(plan, x, idx)
+    assert (hits == 1).all()
+    want = probes.row_gather_plain(torch.from_numpy(x), torch.from_numpy(idx)).numpy()
+    np.testing.assert_array_equal(out, want)
+    assert probes.TILE_MIN_THREADS <= plan.threads <= probes.TILE_THREADS
+    assert 1 <= plan.grid <= probes.TILE_CTAS_PER_SM * sms
+
+
+@pytest.mark.parametrize("kernel", ["block_select", "row_gather"])
+def test_new_plans_misaligned_operand_takes_the_scalar_form(kernel):
+    if kernel == "block_select":
+        plan = probes.block_select_plan(4, 128 * 128, 132, aligned=False)
+        assert not plan.vector and plan.block_units == 128 * 128
+        x = np.arange(8 * 128 * 128, dtype=np.float32).reshape(-1, 128) % 251
+        assert (_select_walk(plan, x, np.asarray([3, 1, 4, 1]))[1] == 1).all()
+    else:
+        plan = probes.row_gather_plan(64, 128, 132, aligned=False)
+        assert not plan.vector and plan.units == 64 * 128 and plan.per_row == 128
+        x = np.arange(256 * 128, dtype=np.float32).reshape(256, 128)
+        assert (_gather_walk(plan, x, _rows_index(256, 64, 128, 0, True))[1] == 1).all()
+
+
+def test_new_plans_spread_the_script_shapes_and_stride_the_large_ones():
+    """The script's shapes go to at least 32 CTAs on the H100's 132 SMs; the
+    byte-bound sizes of chip_smoke.py (1,024 blocks of 128 x 128; a
+    (131072, 128) gather) go to capped grids whose CTAs walk several tiles."""
+    small = probes.block_select_plan(4, 128 * 128, 132)
+    assert small.vector and small.grid >= 32 and small.grid == 4 * small.tiles_per_block
+    large = probes.block_select_plan(1024, 128 * 128, 132)
+    assert large.threads == probes.TILE_THREADS and large.vpt == probes.TILE_VPT
+    assert large.grid == probes.TILE_CTAS_PER_SM * 132
+    assert 1024 * large.tiles_per_block > large.grid
+    small = probes.row_gather_plan(64, 128, 132)
+    assert small.vector and small.grid >= 32
+    large = probes.row_gather_plan(131072, 128, 132)
+    assert large.threads == probes.TILE_THREADS and large.vpt == probes.TILE_VPT
+    assert large.grid == probes.TILE_CTAS_PER_SM * 132
+    assert large.units > large.grid * large.tile
