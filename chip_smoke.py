@@ -18,7 +18,8 @@ any failure raises, so the run exits non-zero and prints no final ok line.
      the index_select alone beside it), at the script's shapes and at a
      size where bytes set the time (LARGE_PROBES), with its launch plan,
      rate and bound share, and checked for exact equality with its plain
-     version at both;
+     version at both; the flat gather's ordering pass is held to its plain
+     twin (a stable sort) at LARGE_PROBES, counted, and timed alone;
   4. the reference-binary goldens in float64 on the card: ref_vertex.ply
      and the five goldens of the other bases (Conformal, Connection in its
      three modes, divFree), ref_cube256.png through the CLI default
@@ -300,6 +301,7 @@ def _probe_library(name: str, args):
 
 
 SELECT = "scalar-prefetch index_map"
+FLAT = "flat 1-D gather"
 
 
 def _yardstick(probes, name: str, args):
@@ -360,10 +362,14 @@ def _plan_of(probes, name: str, args) -> dict:
     if name == "take_along_axis rows (axis 0)":
         return dataclasses.asdict(probes.row_gather_plan(*args[1].shape, sms,
                                                          probes._aligned(*args)))
-    # scale and the flat and lane gathers: one thread per output float in
-    # CTAs of 256 (csrc/probes.cu, kThreads)
-    n = args[1].numel() if len(args) > 1 else x.numel()
-    return dict(threads=256, grid=-(-n // 256))
+    if name == "basic":
+        return dataclasses.asdict(probes.scale_plan(x.numel(), sms, probes._aligned(x)))
+    if name == FLAT:
+        return dataclasses.asdict(probes.flat_gather_plan(args[1].numel(), sms,
+                                                          probes._aligned(args[1])))
+    # the lane gather: one thread per output float in CTAs of 256
+    # (csrc/probes.cu, kThreads)
+    return dict(threads=256, grid=-(-x.numel() // 256))
 
 
 def yardstick_turns(probes, name: str, kernel, args, size: str) -> dict:
@@ -395,6 +401,36 @@ def yardstick_turns(probes, name: str, kernel, args, size: str) -> dict:
              f"kernel <= {label}: {ms <= lib}; {rec['tb_s']:.3f} TB/s, bound "
              f"{b_ms * 1e3:.3f} us ({nbytes} B), bound share {rec['bound_share']:.3f}; "
              f"plan {rec['plan']}")
+    return rec
+
+
+def order_check(probes, idx) -> dict:
+    """The flat gather's ordering pass at ``idx`` under the plan the wrapper
+    takes: exactly equal to its plain twin (a stable torch.sort), and both
+    timed in turns (the twin is no yardstick of the gather: it is the
+    ordering alone)."""
+    import torch
+
+    plan = probes.flat_gather_plan(idx.numel(), probes.sm_count(idx.device),
+                                   probes._aligned(idx))
+    if not plan.ordered:
+        return dict(ordered=False)
+    got = probes.flat_gather_order(idx, plan.chunk, plan.n_chunks)
+    want = probes.flat_gather_order_plain(idx, plan.chunk, plan.n_chunks)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise RuntimeError(f"flat gather ordering pass at {tuple(idx.shape)}: differs from "
+                           f"its plain twin at {int((got != want).sum())} of {plan.n_chunks}")
+    k_ms, p_ms = in_turns(lambda: probes.flat_gather_order(idx, plan.chunk, plan.n_chunks),
+                          lambda: probes.flat_gather_order_plain(idx, plan.chunk,
+                                                                 plan.n_chunks),
+                          TURN_ROUNDS["large"])
+    rec = dict(ordered=True, n_chunks=plan.n_chunks, chunk=plan.chunk, exact=True,
+               ms=float(np.median(k_ms)), ms_spread=[min(k_ms), max(k_ms)],
+               plain_ms=float(np.median(p_ms)), plain_ms_spread=[min(p_ms), max(p_ms)])
+    phase(3, f"flat gather ordering pass ({plan.n_chunks} chunks of {plan.chunk}): equal to "
+             f"its twin; {rec['ms'] * 1e3:.2f} us [{min(k_ms) * 1e3:.2f}-"
+             f"{max(k_ms) * 1e3:.2f}], stable torch.sort twin {rec['plain_ms'] * 1e3:.2f} us")
     return rec
 
 
@@ -461,8 +497,10 @@ def probe_phase(probes):
         rec.update(ms=rec["turns"]["ms"],
                    library_ms=None if lib is None else rec["turns"]["library_ms"])
         big = large_probe_args(name)
+        orders = probes.flat_gather_order.launches
         got, want = kernel(*big), plain(*big)
         torch.cuda.synchronize()
+        order_launches = probes.flat_gather_order.launches - orders
         err = float((got - want).abs().max())
         if not torch.equal(got, want):
             raise RuntimeError(f"probe {name} at {LARGE_PROBES[name]}: kernel and plain "
@@ -470,6 +508,11 @@ def probe_phase(probes):
         del got, want
         rec["large"] = dict(max_abs_err=err,
                             **yardstick_turns(probes, name, kernel, big, "large"))
+        if name == FLAT:
+            rec["large"]["order"] = dict(launches=order_launches, **order_check(probes, big[1]))
+            if rec["large"]["order"]["ordered"] and order_launches != 1:
+                raise RuntimeError(f"flat gather at {LARGE_PROBES[name]}: ordering pass "
+                                   f"launched {order_launches} times, want 1")
         del big
         torch.cuda.empty_cache()
         report[kernel.__name__] = rec

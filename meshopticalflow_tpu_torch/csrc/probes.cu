@@ -3,9 +3,9 @@
 // (scripts/probe_pallas.py). Each is the Hopper counterpart of its probe,
 // not a block-by-block copy:
 //
-//   probe_scale         <- p_basic (:30)                   elementwise o = 2 x
+//   probe_scale         <- p_basic (:30, call :34)         elementwise o = 2 x
 //   probe_row_gather    <- p_take_along_axis_rows (:40, call :48)  o[i,j] = x[idx[i,j], j]
-//   probe_flat_gather   <- p_flat_gather (:58)              o = x[idx]
+//   probe_flat_gather   <- p_flat_gather (:58, call :65)    o = x[idx]
 //   probe_lane_gather   <- p_dynamic_gather_lanes (:74)     o[i,j] = x[i, idx[i,j]]
 //   probe_block_select  <- p_scalar_prefetch_indexmap (:89, call :103)
 //                          out block b = x block sel[b] + 1
@@ -16,6 +16,39 @@
 // Bound: every probe moves a few KB to 512 KB at the reference script's
 // shapes and does at most one add per element, so each is bound by its
 // bytes, and at those sizes by its launch.
+//
+// probe_scale: o = 2 x in 16-byte units. Bound: the launch at the script's
+// (8,128), the bytes (x read once, o written once) at large sizes. Design:
+// the literal port (one float a thread in CTAs of 256, a CTA per 1 KB) paid
+// a CTA launch per KB and issued 4-byte accesses, 24 % slower than
+// torch.mul at 268 MB; now kernels/probes.py:scale_plan gives one tile of
+// threads x VPT float4s a CTA up to a cap, then grid-stride, and a float4 a
+// thread in one CTA at the script's 256 vectors (spreading them over more
+// CTAs, or two a thread, read slower: probe_sweep.py); a
+// thread issues all its VPT loads before its first multiply and store,
+// neighbouring threads on neighbouring addresses, with streaming cache
+// hints (ld/st.global.cs), which read 0.4 us faster at 268 MB. n % 4 tail
+// floats go to CTA 0's first threads; operands not 16-byte aligned take the
+// scalar form (one float a unit).
+//
+// probe_flat_gather: o = x[idx] for any idx. Bound: the launch at the
+// script's 1,024 outputs, the bytes (the x elements idx names, idx and o
+// once each) at large sizes. Design: the order in which outputs are made,
+// not the loads, sets the traffic: at idx = 7 t mod n each of the seven
+// sweeps over t touches every 32-byte sector of a 134 MB x, which L2 (50
+// MB) cannot hold from one sweep to the next, so x came from HBM ~7 times
+// in t order. The outputs are cut into chunks (kernels/probes.py:
+// flat_gather_plan, 4,096 outputs), a hand-written rank sort
+// (probe_flat_gather_order, three small kernels) orders the chunks by their
+// first index as read from idx at run time, and the gather walks chunks in
+// that order on a capped grid, each CTA a contiguous run of the order, so
+// the chunks that read one region of x run one after another on one SM and
+// share it in L1 (in L2, walking the order grid-stride, which leaves each
+// sector to be fetched into ~7 SMs, read slower on an H100: probe_sweep.py,
+// "gather_strided"). A thread loads an int4 of idx, issues the four x
+// loads, stores a float4 of o. Below two chunks the plan skips the ordering
+// pass and spreads the tiles over the SMs. Operands not 16-byte aligned take
+// the scalar form.
 //
 // probe_block_select: the index map that drives the TPU probe's block DMA
 // becomes a block that loads its own index (Hopper has no scalar
@@ -113,10 +146,41 @@ __device__ __forceinline__ void wait_parity(uint32_t bar, uint32_t parity) {
   }
 }
 
-__global__ void probe_scale_kernel(const float* __restrict__ x,
-                                   float* __restrict__ o, int64_t n) {
-  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < n) o[i] = 2.0f * x[i];
+__device__ __forceinline__ float twice(float v) { return 2.0f * v; }
+__device__ __forceinline__ float4 twice(float4 v) {
+  return make_float4(2.0f * v.x, 2.0f * v.y, 2.0f * v.z, 2.0f * v.w);
+}
+
+// o = 2 x over `units` units T (float4: the vector form; float: the scalar
+// form), then `tail` (< 4) floats past them. A CTA step covers a tile of
+// VPT * blockDim.x units, thread k taking units base + k + v * blockDim.x
+// (v < VPT), so neighbouring threads touch neighbouring addresses; tiles are
+// walked grid-stride. Every load of a thread is issued before its first
+// multiply and store, both with the streaming (evict-first) hint: a pass
+// over more than L2 holds gains nothing from keeping its lines. CTA 0's
+// first `tail` threads take the tail floats.
+template <typename T, int VPT>
+__global__ void probe_scale_kernel(const T* __restrict__ x, T* __restrict__ o, int64_t units,
+                                   int tail) {
+  const int64_t tile = static_cast<int64_t>(VPT) * blockDim.x;
+  for (int64_t base = blockIdx.x * tile + threadIdx.x; base < units;
+       base += gridDim.x * tile) {
+    T val[VPT];
+#pragma unroll
+    for (int v = 0; v < VPT; ++v) {
+      const int64_t u = base + static_cast<int64_t>(v) * blockDim.x;
+      if (u < units) val[v] = __ldcs(x + u);
+    }
+#pragma unroll
+    for (int v = 0; v < VPT; ++v) {
+      const int64_t u = base + static_cast<int64_t>(v) * blockDim.x;
+      if (u < units) __stcs(o + u, twice(val[v]));
+    }
+  }
+  if (blockIdx.x == 0 && static_cast<int>(threadIdx.x) < tail) {
+    const int64_t f = units * (sizeof(T) / sizeof(float)) + threadIdx.x;
+    reinterpret_cast<float*>(o)[f] = 2.0f * __ldg(reinterpret_cast<const float*>(x) + f);
+  }
 }
 
 // One unit of a row gather: a float of x (scalar form) or, in the vector
@@ -171,11 +235,125 @@ __global__ void probe_row_gather_kernel(const float* __restrict__ x, const I* __
   }
 }
 
-__global__ void probe_flat_gather_kernel(const float* __restrict__ x,
-                                         const int32_t* __restrict__ idx,
-                                         float* __restrict__ o, int64_t n) {
-  int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t < n) o[t] = x[idx[t]];
+// One unit of a flat gather: the float x[i], or the float4 of the four
+// floats that an int4 of indices names (four 4-byte loads, issued together).
+__device__ __forceinline__ float flat_unit(const float* x, int i) { return __ldg(x + i); }
+__device__ __forceinline__ float4 flat_unit(const float* x, int4 i) {
+  return make_float4(__ldg(x + i.x), __ldg(x + i.y), __ldg(x + i.z), __ldg(x + i.w));
+}
+
+// o = x[idx] over `units` units (T = float4 with I = int4: the vector form;
+// float with I = int: the scalar form), then `tail` (< 4) floats past them.
+// The units are cut into chunks of chunk_units, each of 2^tpc_shift tiles
+// of VPT * blockDim.x units. Without an order, step s is tile s of the
+// units; with one, step s is tile s % 2^tpc_shift of chunk order[p], p = s
+// >> tpc_shift. CTA b takes the contiguous run of steps [b * per, (b + 1) *
+// per) (per = ceil(n_steps / grid), from the host), so one SM works through
+// neighbouring positions of the order, whose
+// chunks read one region of x, and finds most of it in its L1. Thread k
+// takes units first + k + v * blockDim.x (v < VPT): every index load is
+// issued, then every x load, then the stores. Every unit lies in one chunk
+// and every chunk at one position, so each output is written once whatever
+// the order.
+template <typename T, typename I, int VPT>
+__global__ void probe_flat_gather_kernel(const float* __restrict__ x, const I* __restrict__ idx,
+                                         T* __restrict__ o, const int32_t* __restrict__ order,
+                                         int64_t units, int64_t chunk_units, int tpc_shift,
+                                         int64_t n_steps, int64_t per, int tail) {
+  const int64_t tile = static_cast<int64_t>(VPT) * blockDim.x;
+  const int64_t stop = (blockIdx.x + 1) * per < n_steps ? (blockIdx.x + 1) * per : n_steps;
+  for (int64_t s = blockIdx.x * per; s < stop; ++s) {
+    int64_t first = s * tile + threadIdx.x, end = units;
+    if (order != nullptr) {
+      const int64_t start = static_cast<int64_t>(__ldg(order + (s >> tpc_shift))) * chunk_units;
+      end = start + chunk_units < units ? start + chunk_units : units;
+      first = start + (s & ((int64_t{1} << tpc_shift) - 1)) * tile + threadIdx.x;
+    }
+    I k[VPT];
+#pragma unroll
+    for (int v = 0; v < VPT; ++v) {
+      const int64_t u = first + static_cast<int64_t>(v) * blockDim.x;
+      if (u < end) k[v] = __ldg(idx + u);
+    }
+    T val[VPT];
+#pragma unroll
+    for (int v = 0; v < VPT; ++v) {
+      const int64_t u = first + static_cast<int64_t>(v) * blockDim.x;
+      if (u < end) val[v] = flat_unit(x, k[v]);
+    }
+#pragma unroll
+    for (int v = 0; v < VPT; ++v) {
+      const int64_t u = first + static_cast<int64_t>(v) * blockDim.x;
+      if (u < end) o[u] = val[v];
+    }
+  }
+  if (blockIdx.x == 0 && static_cast<int>(threadIdx.x) < tail) {
+    const int64_t f = units * (sizeof(T) / sizeof(float)) + threadIdx.x;
+    reinterpret_cast<float*>(o)[f] = __ldg(x + __ldg(reinterpret_cast<const int*>(idx) + f));
+  }
+}
+
+// The ordering pass of the flat gather: chunk ids 0 .. n_chunks-1 sorted by
+// key[c] = idx[c * stride] (a chunk's first index), ties by id, as a rank
+// sort that is exact and deterministic. (1) probe_order_tile_kernel: one CTA
+// per tile of kOrderTile chunks ranks each key within its tile by a scan of
+// the tile's keys in shared memory, writes the tile's keys in sorted order
+// and the rank. (2) probe_order_merge_kernel: CTA (a, b), a != b, loads tile
+// b's sorted keys and adds to each key of tile a the count of tile b's keys
+// that precede it (binary search: keys <= k from a lower tile, < k from a
+// higher one), with integer atomics, so the sums do not depend on their
+// order. (3) probe_order_scatter_kernel: order[rank[c]] = c.
+constexpr int kOrderTile = 256;
+
+__global__ void __launch_bounds__(kOrderTile) probe_order_tile_kernel(
+    const int32_t* __restrict__ idx, int64_t stride, int n_chunks,
+    int32_t* __restrict__ sorted, int32_t* __restrict__ rank) {
+  __shared__ int32_t keys[kOrderTile];
+  const int base = blockIdx.x * kOrderTile;
+  const int m = n_chunks - base < kOrderTile ? n_chunks - base : kOrderTile;
+  const int i = threadIdx.x;
+  if (i < m) keys[i] = __ldg(idx + static_cast<int64_t>(base + i) * stride);
+  __syncthreads();
+  if (i >= m) return;
+  const int32_t k = keys[i];
+  int r = 0;
+  for (int j = 0; j < m; ++j) {
+    const int32_t kj = keys[j];
+    r += (kj < k) || (kj == k && j < i);
+  }
+  sorted[base + r] = k;
+  rank[base + i] = r;
+}
+
+__global__ void __launch_bounds__(kOrderTile) probe_order_merge_kernel(
+    const int32_t* __restrict__ idx, int64_t stride, int n_chunks,
+    const int32_t* __restrict__ sorted, int32_t* __restrict__ rank) {
+  const int a = blockIdx.x, b = blockIdx.y;
+  if (a == b) return;
+  __shared__ int32_t keys[kOrderTile];
+  const int base_b = b * kOrderTile;
+  const int mb = n_chunks - base_b < kOrderTile ? n_chunks - base_b : kOrderTile;
+  if (static_cast<int>(threadIdx.x) < mb) keys[threadIdx.x] = sorted[base_b + threadIdx.x];
+  __syncthreads();
+  const int e = a * kOrderTile + threadIdx.x;
+  if (e >= n_chunks) return;
+  const int32_t k = __ldg(idx + static_cast<int64_t>(e) * stride);
+  int lo = 0, hi = mb;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (b < a ? keys[mid] <= k : keys[mid] < k) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  if (lo) atomicAdd(rank + e, lo);
+}
+
+__global__ void probe_order_scatter_kernel(const int32_t* __restrict__ rank, int n_chunks,
+                                           int32_t* __restrict__ order) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c < n_chunks) order[rank[c]] = c;
 }
 
 // x, idx, o (m, w): o[i, j] = x[i, idx[i, j]]
@@ -373,11 +551,25 @@ int last_error() { return static_cast<int>(cudaGetLastError()); }
 
 extern "C" {
 
-int probe_scale(const void* x, void* o, int64_t n, void* stream) {
-  if (n > 0) {
-    probe_scale_kernel<<<blocks_for(n), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<float*>(o), n);
+// vector != 0: units are float4 (x and o 16-byte aligned; tail = n % 4
+// floats follow them), else floats (tail = 0).
+int probe_scale(const void* x, void* o, int64_t units, int tail, int vector, int vpt,
+                int threads, int grid, void* stream) {
+  if (units > 0 || tail > 0) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (vector) {
+#define PROBE_SCALE_VECTOR(V)                                                         \
+  probe_scale_kernel<float4, V><<<grid, threads, 0, st>>>(                            \
+      static_cast<const float4*>(x), static_cast<float4*>(o), units, tail)
+      PROBE_VPT_SWITCH(vpt, PROBE_SCALE_VECTOR)
+#undef PROBE_SCALE_VECTOR
+    } else {
+#define PROBE_SCALE_SCALAR(V)                                                         \
+  probe_scale_kernel<float, V><<<grid, threads, 0, st>>>(                             \
+      static_cast<const float*>(x), static_cast<float*>(o), units, tail)
+      PROBE_VPT_SWITCH(vpt, PROBE_SCALE_SCALAR)
+#undef PROBE_SCALE_SCALAR
+    }
   }
   return last_error();
 }
@@ -406,13 +598,68 @@ int probe_row_gather(const void* x, const void* idx, void* o, int64_t units, int
   return last_error();
 }
 
-int probe_flat_gather(const void* x, const void* idx, void* o, int64_t n,
-                      void* stream) {
-  if (n > 0) {
-    probe_flat_gather_kernel<<<blocks_for(n), kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const int32_t*>(idx),
-        static_cast<float*>(o), n);
+// vector != 0: units are float4 of o and int4 of idx (idx and o 16-byte
+// aligned; tail = n % 4 floats follow them), else floats (tail = 0). order
+// (n_chunks chunk ids, from probe_flat_gather_order) or null: chunk order.
+int probe_flat_gather(const void* x, const void* idx, void* o, const void* order,
+                      int64_t units, int64_t chunk_units, int tail, int vector, int vpt,
+                      int threads, int grid, void* stream) {
+  const int64_t tile = static_cast<int64_t>(vpt) * threads;
+  if (tile <= 0 || grid <= 0 || chunk_units <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (units > 0 || tail > 0) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const float* xf = static_cast<const float*>(x);
+    const int32_t* ord = static_cast<const int32_t*>(order);
+    int tpc_shift = 0;   // chunk_units = tile * 2^tpc_shift, or the launch is refused
+    while ((tile << tpc_shift) < chunk_units) ++tpc_shift;
+    if ((tile << tpc_shift) != chunk_units) return static_cast<int>(cudaErrorInvalidValue);
+    // with an order, every tile of every chunk (step s in the chunk at
+    // position s >> tpc_shift); without one, the tiles that hold units
+    const int64_t n_steps = ord != nullptr
+                                ? ((units + chunk_units - 1) / chunk_units) << tpc_shift
+                                : (units + tile - 1) / tile;
+    const int64_t per = (n_steps + grid - 1) / grid;
+    if (vector) {
+#define PROBE_FLAT_VECTOR(V)                                                            \
+  probe_flat_gather_kernel<float4, int4, V><<<grid, threads, 0, st>>>(                  \
+      xf, static_cast<const int4*>(idx), static_cast<float4*>(o), ord, units, chunk_units, \
+      tpc_shift, n_steps, per, tail)
+      PROBE_VPT_SWITCH(vpt, PROBE_FLAT_VECTOR)
+#undef PROBE_FLAT_VECTOR
+    } else {
+#define PROBE_FLAT_SCALAR(V)                                                            \
+  probe_flat_gather_kernel<float, int, V><<<grid, threads, 0, st>>>(                    \
+      xf, static_cast<const int*>(idx), static_cast<float*>(o), ord, units, chunk_units,  \
+      tpc_shift, n_steps, per, tail)
+      PROBE_VPT_SWITCH(vpt, PROBE_FLAT_SCALAR)
+#undef PROBE_FLAT_SCALAR
+    }
+  }
+  return last_error();
+}
+
+// order = chunk ids 0 .. n_chunks-1 sorted by idx[c * stride], ties by id;
+// scratch holds 2 * n_chunks int32 (sorted tile keys, ranks).
+int probe_flat_gather_order(const void* idx, void* scratch, void* order, int64_t n_chunks,
+                            int64_t stride, void* stream) {
+  const int64_t n_tiles = (n_chunks + kOrderTile - 1) / kOrderTile;
+  if (n_chunks > 0x7fffffff || n_tiles > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_chunks > 0) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int32_t* ix = static_cast<const int32_t*>(idx);
+    int32_t* sorted = static_cast<int32_t*>(scratch);
+    int32_t* rank = sorted + n_chunks;
+    const int n = static_cast<int>(n_chunks);
+    const unsigned t = static_cast<unsigned>(n_tiles);
+    probe_order_tile_kernel<<<t, kOrderTile, 0, st>>>(ix, stride, n, sorted, rank);
+    if (t > 1) {
+      probe_order_merge_kernel<<<dim3(t, t), kOrderTile, 0, st>>>(ix, stride, n, sorted,
+                                                                   rank);
+    }
+    probe_order_scatter_kernel<<<t, kOrderTile, 0, st>>>(rank, n,
+                                                         static_cast<int32_t*>(order));
   }
   return last_error();
 }

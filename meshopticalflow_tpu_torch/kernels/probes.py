@@ -17,10 +17,13 @@ Each probe runs on the reference script's own inputs (its ``arange`` arrays)
 and is held against the script's numpy expectation and, on the card, against
 its plain version.
 
-``bulk_copy_plan``, ``accumulate_plan``, ``block_select_plan`` and
-``row_gather_plan`` are the launches of the bulk-copy, grid-accumulation,
-block-select and row-gather kernels (chunk size and CTAs; vector or scalar
-form, tile and grid), in Python so that the CPU tests reach them.
+``bulk_copy_plan``, ``accumulate_plan``, ``block_select_plan``,
+``row_gather_plan``, ``scale_plan`` and ``flat_gather_plan`` are the
+launches of the bulk-copy, grid-accumulation, block-select, row-gather,
+scale and flat-gather kernels (chunk size and CTAs; vector or scalar form,
+tile and grid; the flat gather's chunks and whether its ordering pass
+runs), in Python so that the CPU tests reach them. ``flat_gather_order``
+is the flat gather's ordering pass (held to ``flat_gather_order_plain``).
 """
 
 from __future__ import annotations
@@ -40,9 +43,10 @@ from meshopticalflow_tpu_torch.kernels.build import CudaLibrary, raise_on, strea
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    sigs = {"probe_scale": [p, p, i64, p],
+    sigs = {"probe_scale": [p, p, i64, i32, i32, i32, i32, i32, p],
             "probe_row_gather": [p, p, p, i64, i32, i32, i32, i32, i32, i32, p],
-            "probe_flat_gather": [p, p, p, i64, p],
+            "probe_flat_gather": [p, p, p, p, i64, i64, i32, i32, i32, i32, i32, p],
+            "probe_flat_gather_order": [p, p, p, i64, i64, p],
             "probe_lane_gather": [p, p, p, i64, i32, p],
             "probe_block_select": [p, p, p, i32, i64, i32, i32, i32, i32, i32, p],
             "probe_accumulate": [p, p, i64, i32, i32, i32, i32, i32, p],
@@ -83,6 +87,29 @@ TILE_THREADS = 128
 TILE_MIN_THREADS = 32
 TILE_VPT = 4
 TILE_CTAS_PER_SM = 32
+# probe_scale: a tile of SCALE_THREADS threads x SCALE_VPT float4s a CTA,
+# fewer float4s a thread while one CTA's threads would cover the units (at
+# the launch-bound size one wide CTA, a float4 a thread, reads fastest; not
+# spread over the SMs); at most SCALE_CTAS_PER_SM CTAs an SM, then
+# grid-stride.
+SCALE_THREADS = 256
+SCALE_VPT = 4
+SCALE_CTAS_PER_SM = 128
+# probe_flat_gather: chunks of GATHER_CHUNK outputs (a power of two, at
+# least 4 * GATHER_MIN_THREADS; doubled while there would be more than
+# GATHER_MAX_CHUNKS of them), visited in the order of the ordering pass
+# from GATHER_MIN_ORDERED_CHUNKS chunks on, else in index order; tiles of
+# GATHER_THREADS x GATHER_VPT units (fewer while a tile would overrun a
+# chunk), shrunk as scale's; at most GATHER_CTAS_PER_SM CTAs an SM, each
+# a contiguous run of tiles: one wide CTA an SM, so the SM's L1 holds the
+# region of x that its run of the order reads.
+GATHER_CHUNK = 4096
+GATHER_MAX_CHUNKS = 65536
+GATHER_MIN_ORDERED_CHUNKS = 2
+GATHER_THREADS = 1024
+GATHER_MIN_THREADS = 32
+GATHER_VPT = 1
+GATHER_CTAS_PER_SM = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,14 +165,13 @@ def accumulate_plan(b: int, rw: int, sm_count: int = SMS,
     return AccumulatePlan(vector, units, per_block, threads, grid)
 
 
-def _tile_shape(tiles_of, sm_count: int):
-    """(threads, vpt): from TILE_THREADS x TILE_VPT, halve the threads a CTA
-    down to TILE_MIN_THREADS, then the units a thread down to 1, while
+def _tile_shape(tiles_of, sm_count: int, threads: int, min_threads: int, vpt: int):
+    """(threads, vpt): from ``threads`` x ``vpt``, halve the threads a CTA
+    down to ``min_threads``, then the units a thread down to 1, while
     ``tiles_of(threads * vpt)`` tiles would cover fewer CTAs than
     ``sm_count``."""
-    threads, vpt = TILE_THREADS, TILE_VPT
-    while tiles_of(threads * vpt) < sm_count and (threads > TILE_MIN_THREADS or vpt > 1):
-        if threads > TILE_MIN_THREADS:
+    while tiles_of(threads * vpt) < sm_count and (threads > min_threads or vpt > 1):
+        if threads > min_threads:
             threads //= 2
         else:
             vpt //= 2
@@ -176,7 +202,8 @@ def block_select_plan(nsel: int, block_elems: int, sm_count: int = SMS,
     TILE_CTAS_PER_SM CTAs an SM."""
     vector = aligned and block_elems % 4 == 0
     block_units = block_elems // 4 if vector else block_elems
-    threads, vpt = _tile_shape(lambda tile: nsel * -(-block_units // tile), sm_count)
+    threads, vpt = _tile_shape(lambda tile: nsel * -(-block_units // tile), sm_count,
+                               TILE_THREADS, TILE_MIN_THREADS, TILE_VPT)
     tiles_per_block = -(-block_units // (threads * vpt))
     grid = max(1, min(nsel * tiles_per_block, TILE_CTAS_PER_SM * sm_count))
     return BlockSelectPlan(vector, block_units, threads, vpt, tiles_per_block, grid)
@@ -206,14 +233,101 @@ def row_gather_plan(m: int, w: int, sm_count: int = SMS,
     vector = aligned and w % 4 == 0
     per_row = w // 4 if vector else w
     units = m * per_row
-    threads, vpt = _tile_shape(lambda tile: -(-units // tile), sm_count)
+    threads, vpt = _tile_shape(lambda tile: -(-units // tile), sm_count,
+                               TILE_THREADS, TILE_MIN_THREADS, TILE_VPT)
     grid = max(1, min(-(-units // (threads * vpt)), TILE_CTAS_PER_SM * sm_count))
     return RowGatherPlan(vector, units, per_row, threads, vpt, grid)
 
 
+@dataclasses.dataclass(frozen=True)
+class ScalePlan:
+    vector: bool      # float4 units (x and o 16-byte aligned) or floats
+    units: int        # n // 4 vectors or n floats
+    tail: int         # floats past the units (n % 4 in the vector form, else 0)
+    threads: int      # per CTA
+    vpt: int          # units a thread in one tile
+    grid: int         # CTAs; CTA c walks tiles c, c + grid, ...
+
+    @property
+    def tile(self) -> int:
+        return self.threads * self.vpt
+
+
+@functools.lru_cache(maxsize=256)
+def scale_plan(n: int, sm_count: int = SMS, aligned: bool = True) -> ScalePlan:
+    """The launch of one o = 2 x over ``n`` floats: float4 units and a tail
+    of n % 4 floats where x and o are 16-byte aligned, else floats; one tile
+    a CTA, capped at SCALE_CTAS_PER_SM CTAs an SM; fewer units a thread
+    while SCALE_THREADS threads would cover them all."""
+    units, tail = (n // 4, n % 4) if aligned else (n, 0)
+    vpt = SCALE_VPT
+    while vpt > 1 and SCALE_THREADS * vpt > units:
+        vpt //= 2
+    grid = max(1, min(-(-units // (SCALE_THREADS * vpt)), SCALE_CTAS_PER_SM * sm_count))
+    return ScalePlan(aligned, units, tail, SCALE_THREADS, vpt, grid)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatGatherPlan:
+    vector: bool      # float4 / int4 units (idx and o 16-byte aligned) or floats
+    units: int        # n // 4 vectors or n floats
+    tail: int         # floats past the units (n % 4 in the vector form, else 0)
+    chunk: int        # outputs a chunk; the ordering key of chunk c is idx[c * chunk]
+    n_chunks: int     # chunks of chunk_units covering the units, the last one short
+    ordered: bool     # chunks in the ordering pass's order, else in index order
+    threads: int      # per CTA
+    vpt: int          # units a thread in one tile
+    grid: int         # CTAs; CTA c takes the contiguous run c of the tile steps
+
+    @property
+    def tile(self) -> int:
+        return self.threads * self.vpt
+
+    @property
+    def chunk_units(self) -> int:
+        return self.chunk // 4 if self.vector else self.chunk
+
+    @property
+    def tiles_per_chunk(self) -> int:
+        return self.chunk_units // self.tile
+
+
+@functools.lru_cache(maxsize=256)
+def flat_gather_plan(n: int, sm_count: int = SMS, aligned: bool = True) -> FlatGatherPlan:
+    """The launch of one o = x[idx] over ``n`` outputs: int4 / float4 units
+    and a tail of n % 4 floats where idx and o are 16-byte aligned, else
+    floats; chunks of GATHER_CHUNK outputs (doubled past GATHER_MAX_CHUNKS
+    chunks), ordered by the ordering pass from GATHER_MIN_ORDERED_CHUNKS
+    chunks on; tiles spread over the SMs and capped at GATHER_CTAS_PER_SM
+    CTAs an SM, each tile inside one chunk, each CTA a contiguous run of
+    tile steps."""
+    units, tail = (n // 4, n % 4) if aligned else (n, 0)
+    width = 4 if aligned else 1
+    chunk = GATHER_CHUNK
+    if chunk & (chunk - 1) or chunk < 4 * GATHER_MIN_THREADS:
+        raise ValueError(f"GATHER_CHUNK {chunk}: want a power of two of at least "
+                         f"{4 * GATHER_MIN_THREADS}")
+    while -(-units // (chunk // width)) > GATHER_MAX_CHUNKS:
+        chunk *= 2
+    n_chunks = -(-units // (chunk // width))
+    threads, vpt = GATHER_THREADS, GATHER_VPT        # a tile fits in a chunk
+    while threads * vpt > chunk // width:
+        threads, vpt = (threads, vpt // 2) if vpt > 1 else (threads // 2, vpt)
+    threads, vpt = _tile_shape(lambda tile: -(-units // tile), sm_count,
+                               threads, min(threads, GATHER_MIN_THREADS), vpt)
+    ordered = n_chunks >= GATHER_MIN_ORDERED_CHUNKS
+    # ordered: every chunk's tiles, a short last chunk's empty ones too, so
+    # that step s lies in the chunk at position s // tiles_per_chunk
+    steps = (n_chunks * (chunk // width // (threads * vpt)) if ordered
+             else -(-units // (threads * vpt)))
+    grid = max(1, min(steps, GATHER_CTAS_PER_SM * sm_count))
+    return FlatGatherPlan(aligned, units, tail, chunk, n_chunks, ordered, threads, vpt, grid)
+
+
 def clear_plans() -> None:
     """Forget the cached plans (after a launch constant changed)."""
-    for plan in (bulk_copy_plan, accumulate_plan, block_select_plan, row_gather_plan):
+    for plan in (bulk_copy_plan, accumulate_plan, block_select_plan, row_gather_plan,
+                 scale_plan, flat_gather_plan):
         plan.cache_clear()
 
 
@@ -243,7 +357,7 @@ def _check(name: str, *tensors: torch.Tensor) -> bool:
 
 def _launch(wrapper, entry: str, *args) -> None:
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
-    call = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    call = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]   # None: null
     with torch.cuda.device(dev):
         err = getattr(LIBRARY.load(), entry)(*call, stream_of(dev))
     raise_on(err, entry)
@@ -280,6 +394,12 @@ def flat_gather_plain(x, idx):
 
 
 @_plain
+def flat_gather_order_plain(idx, chunk: int, n_chunks: int):
+    keys = idx.reshape(-1)[:n_chunks * chunk:chunk]
+    return torch.sort(keys, stable=True).indices.to(torch.int32)
+
+
+@_plain
 def lane_gather_plain(x, idx):
     return torch.gather(x, 1, idx.long())
 
@@ -307,7 +427,10 @@ def scale(x):
     if not _check("scale", x):
         return scale_plain(x)
     o = torch.empty_like(x)
-    _launch(scale, "probe_scale", x, o, x.numel())
+    if o.numel():
+        plan = scale_plan(x.numel(), sm_count(x.device), _aligned(x, o))
+        _launch(scale, "probe_scale", x, o, plan.units, plan.tail, int(plan.vector),
+                plan.vpt, plan.threads, plan.grid)
     return o
 
 
@@ -333,8 +456,31 @@ def flat_gather(x, idx):
     if not _check("flat_gather", x, idx):
         return flat_gather_plain(x, idx)
     o = torch.empty(idx.shape, dtype=x.dtype, device=x.device)
-    _launch(flat_gather, "probe_flat_gather", x, idx, o, idx.numel())
+    if o.numel():
+        plan = flat_gather_plan(idx.numel(), sm_count(x.device), _aligned(idx, o))
+        order = flat_gather_order(idx, plan.chunk, plan.n_chunks) if plan.ordered else None
+        _launch(flat_gather, "probe_flat_gather", x, idx, o, order, plan.units,
+                plan.chunk_units, plan.tail, int(plan.vector), plan.vpt, plan.threads,
+                plan.grid)
     return o
+
+
+def flat_gather_order(idx, chunk: int, n_chunks: int):
+    """The flat gather's ordering pass: chunk ids 0 .. n_chunks-1 sorted by
+    their key idx.flat[c * chunk], ties by id (a stable sort), as int32.
+    Counts one launch in ``flat_gather_order.launches`` per pass (three
+    kernels)."""
+    if chunk <= 0 or n_chunks < 0 or (n_chunks and (n_chunks - 1) * chunk >= idx.numel()):
+        raise ValueError(f"flat_gather_order: {n_chunks} chunks of {chunk} in "
+                         f"{idx.numel()} indices")
+    if not _check("flat_gather_order", idx):
+        return flat_gather_order_plain(idx, chunk, n_chunks)
+    order = torch.empty(n_chunks, dtype=torch.int32, device=idx.device)
+    if n_chunks:
+        scratch = torch.empty(2 * n_chunks, dtype=torch.int32, device=idx.device)
+        _launch(flat_gather_order, "probe_flat_gather_order", idx, scratch, order, n_chunks,
+                chunk)
+    return order
 
 
 def lane_gather(x, idx):
@@ -412,12 +558,15 @@ PLAINS = {scale: scale_plain, row_gather: row_gather_plain,
           bulk_copy: bulk_copy_plain}
 for _k in KERNELS:
     _k.launches = 0
+flat_gather_order.launches = 0
 
 
 def reset_counts() -> None:
     for k in KERNELS:
         k.launches = 0
         PLAINS[k].cuda_calls = 0
+    flat_gather_order.launches = 0
+    flat_gather_order_plain.cuda_calls = 0
 
 
 # -- the reference script's inputs and expectations ---------------------------

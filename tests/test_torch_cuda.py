@@ -393,3 +393,103 @@ def test_cuda_spectrum_matches_arpack():
     counts = spmv.counts()
     np.testing.assert_allclose(res.eigenvalues, arpack_spectrum(host, mesh, 6), rtol=1e-5)
     assert counts["spmv_ell_multi"] > 0 and counts["plain_on_cuda"] == 0
+
+
+# Scale: the script's (8, 128); n % 4 = 3 (float4 units and a tail); a view
+# one float into its storage (the scalar form); a capped grid that strides
+# (16,896 CTAs of 1,024 vectors on 132 SMs cover 17,301,504 vectors), with
+# a tail
+SCALE_CASES = {"script": (8 * 128, 0), "ragged": (1023, 0), "misaligned": (4097, 1),
+               "grid_stride": (4 * 17301504 * 5 // 4 + 3, 0)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SCALE_CASES))
+def test_cuda_scale_matches_plain(case):
+    _require_card()
+    n, offset = SCALE_CASES[case]
+    x = _small_ints(n + offset, 31)[offset:]
+    plan = probes.scale_plan(n, probes.sm_count(x.device), probes._aligned(x))
+    assert plan.vector == (case != "misaligned")
+    if case == "grid_stride":
+        assert plan.units > plan.grid * plan.tile and plan.tail == 3
+    before = probes.scale.launches
+    o = probes.scale(x)
+    torch.cuda.synchronize()
+    assert probes.scale.launches == before + 1
+    assert torch.equal(o, probes.scale_plain(x))
+
+
+def _flat_case(kind, n, nx, seed=37):
+    """idx (n,) of one kind on the card: 7 t mod nx, a random permutation
+    (numpy seed), random entries with repeats, all entries equal."""
+    rng = np.random.default_rng(seed)
+    if kind == "7t":
+        idx = np.arange(n, dtype=np.int64) * 7 % nx
+    elif kind == "permutation":
+        idx = rng.permutation(nx)[:n]
+    elif kind == "repeats":
+        idx = rng.integers(0, max(nx // 16, 1), n)
+    else:
+        idx = np.full(n, nx // 2)
+    return torch.from_numpy(idx.astype(np.int32)).cuda()
+
+
+# (kind, outputs, floats of x): each over one chunk of GATHER_CHUNK outputs;
+# a length that is not a multiple of the chunk (n % 4 = 3); more chunks than
+# one ordering tile of 256 holds (1,027 chunks), so the merge kernel runs;
+# a grid the cap makes stride (4,096 chunks of two tiles: 8,192 steps)
+FLAT_GPU_CASES = {"7t": ("7t", 6 * 4096, 12289),
+                  "permutation": ("permutation", 5 * 4096 + 3, 5 * 4096 + 3),
+                  "repeats": ("repeats", 1027 * 4096 - 1, 100000),
+                  "ties": ("ties", 3 * 4096, 100),
+                  "grid_stride": ("7t", 4096 * 4096, 4096 * 4096)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(FLAT_GPU_CASES))
+def test_cuda_flat_gather_matches_plain(case):
+    _require_card()
+    kind, n, nx = FLAT_GPU_CASES[case]
+    x = _small_ints(nx, 41)
+    idx = _flat_case(kind, n, nx)
+    plan = probes.flat_gather_plan(n, probes.sm_count(x.device), probes._aligned(idx))
+    assert plan.vector and plan.ordered
+    if case == "grid_stride":
+        assert plan.n_chunks * plan.tiles_per_chunk > plan.grid
+    before, orders = probes.flat_gather.launches, probes.flat_gather_order.launches
+    o = probes.flat_gather(x, idx)
+    torch.cuda.synchronize()
+    assert probes.flat_gather.launches == before + 1
+    assert probes.flat_gather_order.launches == orders + 1
+    assert torch.equal(o, probes.flat_gather_plain(x, idx))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(FLAT_GPU_CASES))
+def test_cuda_flat_gather_order_matches_twin(case):
+    _require_card()
+    kind, n, nx = FLAT_GPU_CASES[case]
+    idx = _flat_case(kind, n, nx)
+    plan = probes.flat_gather_plan(n, probes.sm_count(idx.device))
+    got = probes.flat_gather_order(idx, plan.chunk, plan.n_chunks)
+    again = probes.flat_gather_order(idx, plan.chunk, plan.n_chunks)
+    torch.cuda.synchronize()
+    want = probes.flat_gather_order_plain(idx, plan.chunk, plan.n_chunks)
+    assert torch.equal(got, want) and torch.equal(again, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [8 * 128, 5 * 4096 + 2])      # unordered and ordered
+def test_cuda_flat_gather_misaligned_index(n):
+    """idx a view one int into its storage: the scalar form, still equal to
+    the plain version bit for bit."""
+    _require_card()
+    x = _small_ints(2048, 43)
+    idx = torch.empty(n + 1, dtype=torch.int32, device="cuda")[1:]
+    idx.copy_(_flat_case("permutation", n, 2048 * 16) % 2048)
+    plan = probes.flat_gather_plan(n, probes.sm_count(x.device), probes._aligned(idx))
+    assert idx.data_ptr() % 16 and not plan.vector and plan.ordered == (n > 4096)
+    o = probes.flat_gather(x, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(o, probes.flat_gather_plain(x, idx))

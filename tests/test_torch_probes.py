@@ -370,3 +370,215 @@ def test_new_plans_spread_the_script_shapes_and_stride_the_large_ones():
     assert large.threads == probes.TILE_THREADS and large.vpt == probes.TILE_VPT
     assert large.grid == probes.TILE_CTAS_PER_SM * 132
     assert large.units > large.grid * large.tile
+
+
+# The launch plans of the scale and flat-gather kernels and the flat
+# gather's ordering twin, checked on the host by walking the plans as the
+# kernels walk them.
+
+SCRIPT_FLOATS = 8 * 128                 # the script's (8, 128) operands
+LARGE_FLOATS = 262144 * 128             # chip_smoke.LARGE_PROBES: 134 MB of x
+
+
+def _unit_floats(u, width):
+    """The output floats of units ``u`` (float4 units: width 4)."""
+    return (u[:, None] * width + np.arange(width)[None, :]).ravel()
+
+
+def _scale_walk(plan, x):
+    """The output of csrc/probes.cu:probe_scale_kernel under ``plan`` and the
+    writes per output float: CTA c takes tiles c, c + grid, ...; tile s
+    covers units s * tile + k + v * threads; CTA 0's first ``tail`` threads
+    take the floats past the units."""
+    width = 4 if plan.vector else 1
+    n = x.size
+    out = np.full(n, np.nan, np.float32)
+    lanes = (np.arange(plan.threads)[:, None] + np.arange(plan.vpt)[None, :] * plan.threads)
+    n_tiles = -(-plan.units // plan.tile)
+    written = []
+    for c in range(plan.grid):
+        u = (np.arange(c, n_tiles, plan.grid)[:, None] * plan.tile + lanes.ravel()).ravel()
+        f = _unit_floats(u[u < plan.units], width)
+        out[f] = 2.0 * x[f]
+        written.append(f)
+    f = plan.units * width + np.arange(plan.tail)
+    out[f] = 2.0 * x[f]
+    written.append(f)
+    return out, np.bincount(np.concatenate(written), minlength=n)
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["vector", "misaligned"])
+@pytest.mark.parametrize("sms", [1, 132, 264])
+@pytest.mark.parametrize("n", [SCRIPT_FLOATS, SCRIPT_FLOATS - 1, 3, 5, LARGE_FLOATS,
+                               LARGE_FLOATS + 3])
+def test_scale_plan_form_and_coverage(n, sms, aligned):
+    plan = probes.scale_plan(n, sms, aligned)
+    width = 4 if plan.vector else 1
+    assert plan.vector == aligned                # misaligned operands: the scalar form
+    assert plan.units * width + plan.tail == n and plan.tail == (n % 4 if aligned else 0)
+    assert plan.threads == probes.SCALE_THREADS and plan.vpt in (1, 2, 4, 8)
+    assert plan.vpt == probes.SCALE_VPT or plan.threads * plan.vpt * 2 > plan.units
+    assert 1 <= plan.grid <= probes.SCALE_CTAS_PER_SM * sms
+    x = (np.arange(n) % 251).astype(np.float32)
+    out, hits = _scale_walk(plan, x)
+    assert (hits == 1).all()
+    if n <= SCRIPT_FLOATS:
+        np.testing.assert_array_equal(out, probes.scale_plain(torch.from_numpy(x)).numpy())
+
+
+def test_scale_plan_shapes_the_script_large_and_capped_sizes():
+    """The script's (8, 128): 256 vectors in one CTA, a vector a thread (not
+    spread over the SMs: one wide CTA reads fastest where the launch sets
+    the time); (262144, 128): full tiles, one a CTA, under the cap; four
+    times that: the capped grid, whose CTAs walk several tiles each."""
+    small = probes.scale_plan(SCRIPT_FLOATS, 132)
+    assert small.vector and small.units == 256 and small.grid == 1
+    assert small.threads * small.vpt == 256
+    large = probes.scale_plan(LARGE_FLOATS, 132)
+    assert large.vpt == probes.SCALE_VPT
+    assert large.grid == large.units // large.tile <= probes.SCALE_CTAS_PER_SM * 132
+    larger = probes.scale_plan(4 * LARGE_FLOATS, 132)
+    assert larger.grid == probes.SCALE_CTAS_PER_SM * 132
+    assert larger.units > larger.grid * larger.tile
+
+
+def _flat_walk(plan, x, idx, order):
+    """The output of csrc/probes.cu:probe_flat_gather_kernel under ``plan``
+    with chunk order ``order`` (None: index order) and the writes per output
+    float: CTA c takes the tile steps [c * per, (c + 1) * per), per =
+    ceil(steps / grid); with an order, step s is tile s % tiles_per_chunk of
+    the chunk at position s // tiles_per_chunk, without one tile s of the
+    units; CTA 0's first ``tail`` threads take the floats past the units."""
+    width = 4 if plan.vector else 1
+    flat = idx.reshape(-1)
+    n = flat.size
+    out = np.full(n, np.nan, np.float32)
+    lanes = (np.arange(plan.threads)[:, None] + np.arange(plan.vpt)[None, :] * plan.threads)
+    cu, tpc = plan.chunk_units, plan.tiles_per_chunk
+    steps = plan.n_chunks * tpc if order is not None else -(-plan.units // plan.tile)
+    written = []
+    per = -(-steps // plan.grid)
+    for c in range(plan.grid):
+        s = np.arange(c * per, min((c + 1) * per, steps))
+        p = s // tpc
+        start = (np.asarray(order)[p] if order is not None else p).astype(np.int64) * cu
+        end = np.minimum(start + cu, plan.units)
+        u = (start + (s - p * tpc) * plan.tile)[:, None] + lanes.ravel()[None, :]
+        f = _unit_floats(u[u < end[:, None]], width)
+        out[f] = x[flat[f]]
+        written.append(f)
+    f = plan.units * width + np.arange(plan.tail)
+    out[f] = x[flat[f]]
+    written.append(f)
+    return out, np.bincount(np.concatenate(written), minlength=n)
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["vector", "misaligned"])
+@pytest.mark.parametrize("sms", [1, 132, 264])
+@pytest.mark.parametrize("n", [SCRIPT_FLOATS, 3, 3 * 4096 + 5, LARGE_FLOATS])
+def test_flat_gather_plan_writes_every_output_once_in_any_order(n, sms, aligned):
+    """Every output float is written once whatever the chunk order: here a
+    random permutation of the chunks (numpy seed), not the ordering pass's."""
+    plan = probes.flat_gather_plan(n, sms, aligned)
+    width = 4 if plan.vector else 1
+    assert plan.vector == aligned
+    assert plan.units * width + plan.tail == n and plan.tail == (n % 4 if aligned else 0)
+    assert plan.n_chunks == -(-plan.units // plan.chunk_units)
+    assert plan.ordered == (plan.n_chunks >= probes.GATHER_MIN_ORDERED_CHUNKS)
+    assert plan.chunk_units % plan.tile == 0 and plan.vpt in (1, 2, 4, 8)
+    assert 1 <= plan.grid <= probes.GATHER_CTAS_PER_SM * sms
+    idx = (np.arange(n, dtype=np.int64) * 7 % max(n, 1)).astype(np.int32)
+    x = (np.arange(n) % 251).astype(np.float32)
+    order = (np.random.default_rng(n).permutation(plan.n_chunks) if plan.ordered else None)
+    out, hits = _flat_walk(plan, x, idx, order)
+    assert (hits == 1).all()
+    if n < LARGE_FLOATS:
+        np.testing.assert_array_equal(out, x[idx])
+
+
+def test_flat_gather_plan_orders_the_large_size_and_not_the_script_one():
+    """The script's 1,024 outputs are one chunk: no ordering pass, the tiles
+    spread over at least 8 CTAs; x (33554432,) with idx (262144, 128): 8,192
+    chunks of GATHER_CHUNK outputs, ordered, on a capped grid."""
+    small = probes.flat_gather_plan(SCRIPT_FLOATS, 132)
+    assert small.vector and not small.ordered and small.n_chunks == 1 and small.grid >= 8
+    large = probes.flat_gather_plan(LARGE_FLOATS, 132)
+    assert large.ordered and large.chunk == probes.GATHER_CHUNK
+    assert large.n_chunks == LARGE_FLOATS // probes.GATHER_CHUNK == 8192
+    assert large.grid == probes.GATHER_CTAS_PER_SM * 132
+    assert large.n_chunks * large.tiles_per_chunk > large.grid
+
+
+def test_flat_gather_plan_doubles_the_chunk_past_the_chunk_limit(monkeypatch):
+    monkeypatch.setattr(probes, "GATHER_MAX_CHUNKS", 16)
+    probes.clear_plans()
+    try:
+        plan = probes.flat_gather_plan(100 * probes.GATHER_CHUNK, 132)
+        assert plan.chunk == 8 * probes.GATHER_CHUNK and plan.n_chunks == 13
+        monkeypatch.setattr(probes, "GATHER_CHUNK", 3000)
+        probes.clear_plans()
+        with pytest.raises(ValueError):
+            probes.flat_gather_plan(100000, 132)
+    finally:
+        monkeypatch.undo()
+        probes.clear_plans()
+
+
+def _flat_index(kind, n, nx):
+    """idx of one of four kinds, x of ``nx`` floats: 7 t mod nx (the script's
+    pattern), a random permutation, random entries with repeats, and all
+    entries equal (every key ties)."""
+    rng = np.random.default_rng(7)
+    if kind == "7t":
+        return (np.arange(n, dtype=np.int64) * 7 % nx).astype(np.int32)
+    if kind == "permutation":
+        return rng.permutation(nx)[:n].astype(np.int32)
+    if kind == "repeats":
+        return rng.integers(0, nx // 16, n).astype(np.int32)
+    return np.full(n, nx // 2, np.int32)
+
+
+# (kind, outputs, floats of x): at least two chunks of GATHER_CHUNK outputs;
+# 5 chunks and 3 floats (a length not a multiple of the chunk, n % 4 = 3)
+FLAT_CASES = [("7t", 6 * 4096, 12289), ("permutation", 5 * 4096 + 3, 5 * 4096 + 3),
+              ("repeats", 5 * 4096 + 3, 9000), ("ties", 3 * 4096, 100)]
+
+
+@pytest.mark.parametrize("kind,n,nx", FLAT_CASES, ids=[c[0] for c in FLAT_CASES])
+def test_flat_gather_order_twin_is_a_stable_sort_of_the_chunks(kind, n, nx):
+    idx = torch.from_numpy(_flat_index(kind, n, nx))
+    plan = probes.flat_gather_plan(n, 132)
+    assert plan.ordered and plan.n_chunks >= 2
+    order = probes.flat_gather_order_plain(idx, plan.chunk, plan.n_chunks)
+    assert order.dtype == torch.int32
+    order = order.numpy()
+    assert sorted(order) == list(range(plan.n_chunks))          # a permutation
+    keys = idx.numpy()[order.astype(np.int64) * plan.chunk]
+    assert (np.diff(keys) >= 0).all()                           # non-decreasing in key
+    ties = np.diff(keys) == 0
+    assert (np.diff(order)[ties] > 0).all()                     # ties by id
+    again = probes.flat_gather_order_plain(idx, plan.chunk, plan.n_chunks).numpy()
+    np.testing.assert_array_equal(order, again)
+    # the CPU wrapper is the twin
+    np.testing.assert_array_equal(probes.flat_gather_order(idx, plan.chunk, plan.n_chunks),
+                                  order)
+
+
+@pytest.mark.parametrize("sms", [1, 132, 264])
+@pytest.mark.parametrize("kind,n,nx", FLAT_CASES, ids=[c[0] for c in FLAT_CASES])
+def test_flat_gather_chunks_in_twin_order_equal_the_plain_version(kind, n, nx, sms):
+    idx = _flat_index(kind, n, nx)
+    x = (np.arange(nx) % 251).astype(np.float32) - 125.0
+    plan = probes.flat_gather_plan(n, sms)
+    order = probes.flat_gather_order_plain(torch.from_numpy(idx), plan.chunk,
+                                           plan.n_chunks).numpy()
+    out, hits = _flat_walk(plan, x, idx, order)
+    assert (hits == 1).all()
+    want = probes.flat_gather_plain(torch.from_numpy(x), torch.from_numpy(idx)).numpy()
+    np.testing.assert_array_equal(out, want)
+
+
+@pytest.mark.parametrize("chunk,n_chunks", [(4096, 3), (4096, -1), (0, 2)])
+def test_flat_gather_order_refuses_chunks_past_the_index(chunk, n_chunks):
+    with pytest.raises(ValueError):
+        probes.flat_gather_order(torch.zeros(2 * 4096, dtype=torch.int32), chunk, n_chunks)
