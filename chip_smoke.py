@@ -7,7 +7,10 @@ any failure raises, so the run exits non-zero and prints no final ok line.
 
   1. the card's name and power limit; refuse to run without a GPU;
   2. build both CUDA libraries from the checkout's sources (one nvcc each,
-     started together);
+     started together) and, beside them, the native host library
+     (native/meshhost.cpp, g++) into meshopticalflow_tpu_torch/_build/; every
+     texture draw below must rasterize with it (``init_profile``'s
+     ``raster_path`` "native"), never with the numpy fallback;
   3. the probe path: the seven capability-probe kernels through their entry
      point (``python -m meshopticalflow_tpu_torch.kernels.probes``), then each
      against its plain version and the reference script's numpy expectation,
@@ -24,8 +27,8 @@ any failure raises, so the run exits non-zero and prints no final ok line.
      and the five goldens of the other bases (Conformal, Connection in its
      three modes, divFree), ref_cube256.png through the CLI default
      (multigrid), and the same cube with ``use_multigrid=False``,
-     ``--flowBackend xla``, ``flow_mg_levels=2`` and ``mg_c1_bf16``, so every
-     solver stays gated; the TrackSequence CLI on a.ply b.ply with
+     ``--flowBackend xla``, ``flow_mg_levels=2``, ``mg_c1_bf16`` and
+     ``--flowBackend mf``, so every solver stays gated; the TrackSequence CLI on a.ply b.ply with
      ``--composed`` (halfway_000.ply against ref_vertex.ply) and on the 256^2
      cube (halfway_000.png against ref_cube256.png); the spectrum (block
      Lanczos, the CUDA path) of the sphere subdivided twice against scipy's
@@ -42,12 +45,30 @@ any failure raises, so the run exits non-zero and prints no final ok line.
      so the flow and smoothing solves are the two-level cycle, with a host
      coarse solve in every iteration; then the split of one two-level
      iteration (device work, the host round trip);
-  6c. tracking at full width: mA/mB upsampled to 2048^2 baked onto the cube
-     by the SampleTextureToVertices CLI at its default edge length (393,216
+  6e. the multifrontal direct solve (``--flowBackend mf``) at the
+     multigrid cell's size, after a draw with ``--flowBackend xla`` (the
+     same three-level smoothing cycle, which mf takes as the reference
+     does, with the three-level multigrid flow solve): the
+     nested-dissection pack's seconds and stats, refinement rounds per
+     level, whether a level took the shifted refactor or the multigrid
+     fallback, one factorization and one solve of the last level's system
+     (CUDA events), every level's flow_res within 10 x flow_refine_tol;
+     then both problems' levels again from the initial state under torch's
+     deterministic algorithms, the mf final alignment error within
+     MF_ALIGNMENT_REL of the xla one's (the draws' distances, and the mf
+     draw's to phase 6's, are recorded);
+  6c. the per-mesh init cache: the multigrid cell built twice in one
+     process with the artifact cache on (a scratch $MESHFLOW_CACHE), at
+     WARM_LEVELS levels under torch's deterministic algorithms: both
+     init profiles, the second construction holding the first one's
+     tensors and computing its tfield bit for bit; then tracking at full
+     width: mA/mB upsampled to 2048^2 baked onto the cube by the
+     SampleTextureToVertices CLI at its default edge length (393,216
      triangles, 196,610 vertices), then the vertex TrackSequence CLI over
-     frames A, B, A with ``--composed`` at float32 CLI defaults: per pair
-     init and level seconds, flow iterations and alignment error, the
-     composed resample's seconds, SpMV launches per form;
+     frames A, B, A with ``--composed`` at float32 CLI defaults, the cache
+     on: per pair init (pair 2 warm) and level seconds, flow iterations
+     and alignment error, the composed resample's seconds, SpMV launches
+     per form;
   6d. the spectrum at demo scale: the Spectrum CLI (k = 20, float32, block
      Lanczos on the banded shift-invert solve) on the cube at --eLength
      0.018 (49,152 triangles, 73,728 Whitney unknowns): seconds by stage,
@@ -70,12 +91,16 @@ any failure raises, so the run exits non-zero and prints no final ok line.
      the levels is timed inside phase 6's run);
   8. the result lines.
 
-Every phase that drives a path (3, 5, 6, 6b, 6c, 6d) sets the launch counts
-to 0 just before it and reads them just after; phases 5 to 6d print and
-record the SpMV launches per form. The second-to-last line is a JSON record
-of the nine kernels; the last line is {"ok": true, "device": {...}}. Scratch
-files and the full records go to chiprun_out/chip_smoke/ (kernels.json,
-main_path_{jacobi,multigrid,conformal,connection,tracking,spectrum}.json).
+Every phase that drives a path (3, 5, 6, 6b, 6e, 6c, 6d) sets the launch
+counts to 0 just before it and reads them just after; phases 5 to 6d print
+and record the SpMV launches per form. The draws of phases 5, 6, 6b and 6e
+run with the artifact cache off, so their init is cold as in earlier
+records. The second-to-last line is a JSON record of the nine kernels; the
+last line is {"ok": true, "device": {...}}. The full records go to
+chiprun_out/chip_smoke/ (kernels.json, main_path_{jacobi,multigrid,
+conformal,connection,mf,warm_init,tracking,spectrum}.json); the artifact
+cache ($MESHFLOW_CACHE), the baked frames and the CLIs' outputs to a
+scratch directory in the checkout that the run deletes.
 """
 
 from __future__ import annotations
@@ -103,6 +128,11 @@ KERNEL_TOL = {"float32": 1e-6, "bfloat16": 1e-6, "float64": 1e-12}
 HBM_TB_S = 3.35
 PEAK_TFLOP_S = {"float32": 67.0, "bfloat16": 67.0, "float64": 34.0}
 MG_ROOT_FRACTION = 0.024       # root edge length: 24,576 triangles
+# the mf run's final alignment error against the xla run's (the same
+# pipeline but the flow solve, both under deterministic algorithms): the
+# bound of tests/test_torch_multifrontal.py and tests/test_multifrontal.py
+MF_ALIGNMENT_REL = 1e-5
+WARM_LEVELS = 3                # depth of the two warm-init constructions' runs
 DEVICE = "cuda"
 
 
@@ -244,6 +274,11 @@ def bound(nbytes: float, flops: float, dtype_name: str):
 
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def rounded(profile: dict) -> dict:
+    """An init profile for printing: seconds to 3 decimals, labels as they are."""
+    return {k: round(v, 3) if isinstance(v, float) else v for k, v in profile.items()}
 
 
 def launches_where(counts: dict, kernel=None, dtype=None, shape=None, variant=None) -> int:
@@ -538,7 +573,7 @@ VERTEX_GOLDENS = ((["--vfMode", "1"], "ref_vertex_conformal.ply", 0),
 # (config changes, tag) of the 256^2 cube golden runs
 CUBE_SOLVERS = (({}, "multigrid"), (dict(use_multigrid=False), "jacobi"),
                 (dict(flow_backend="xla"), "xla"), (dict(flow_mg_levels=2), "2level"),
-                (dict(mg_c1_bf16=True), "c1_bf16"))
+                (dict(mg_c1_bf16=True), "c1_bf16"), (dict(flow_backend="mf"), "mf"))
 
 
 def vertex_blend(device, flags=()):
@@ -830,12 +865,13 @@ def drive(spmv, mesh, paths, size, cfg, tag: str, n: int,
           during_run=contextlib.nullcontext):
     """One draw through the user's entry points (from_texture_inputs -> run
     -> halfway_texture) with the launch counts set to 0 just before it and
-    read just after; ``during_run()`` is entered around ``run``. Returns
-    (problem, record)."""
+    read just after; ``during_run()`` is entered around ``run``. The
+    artifact cache is off: the init is cold. Returns (problem, record)."""
     import torch
     from meshopticalflow_tpu_torch.flow.pipeline import FlowProblem
     from meshopticalflow_tpu_torch.io.png import write_png_rgb
 
+    cfg = dataclasses.replace(cfg, artifact_cache=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     spmv.reset_counts()
@@ -854,7 +890,8 @@ def drive(spmv, mesh, paths, size, cfg, tag: str, n: int,
     counts = spmv.counts()
     write_png_rgb(os.path.join(WORK, f"halfway_{tag}_{size}.png"), np.flipud(blend))
     total_s = init_s + run_s + out_s
-    keys = LEVEL_KEYS + (MG_LEVEL_KEYS if prob.hier is not None else ())
+    keys = LEVEL_KEYS + (MG_LEVEL_KEYS if prob.hier is not None else ()) \
+        + (("mf_fallback",) if prob.nd is not None else ())
     rec = dict(triangles=prob.mesh.n_triangles, vertices=prob.mesh.n_vertices,
                flow_unknowns=prob.arrays.basis.n_coeffs,
                flow_ell_width=prob.arrays.basis.ell_width,
@@ -902,8 +939,9 @@ def drive(spmv, mesh, paths, size, cfg, tag: str, n: int,
              f"(ELL width {rec['flow_ell_width']}), {size}^2 atlas: init {init_s:.2f} s, "
              f"levels {run_s:.2f} s, halfway {out_s:.2f} s, e2e "
              f"{rec['e2e_texels_per_sec']:.1f} texels/s; peak {rec['peak_mem_gb']:.2f} GB")
-    phase(n, "init profile " + json.dumps({k: round(v, 3)
-                                           for k, v in prob.init_profile.items()}))
+    phase(n, "init profile " + json.dumps(rounded(prob.init_profile)))
+    phase(n, f"raster {prob.init_profile['raster']:.3f} s by the "
+             f"{prob.init_profile['raster_path']} rasterizer")
     phase(n, f"launches: spmv_ell {counts['spmv_ell']}, spmv_ell_multi "
              f"{counts['spmv_ell_multi']}, plain on CUDA {counts['plain_on_cuda']}")
     for form, k in counts["by_form"].items():
@@ -920,6 +958,9 @@ def drive(spmv, mesh, paths, size, cfg, tag: str, n: int,
         raise RuntimeError(f"{tag}: ran {len(rec['levels'])} levels, expected {cfg.levels}")
     if counts["plain_on_cuda"] != 0:
         raise RuntimeError(f"{tag}: a plain version ran on CUDA tensors: {counts}")
+    if prob.init_profile["raster_path"] != "native":
+        raise RuntimeError(f"{tag}: the texel table came from the "
+                           f"{prob.init_profile['raster_path']} rasterizer, not the native one")
     if blend.shape != (size, size, 3) or blend.dtype != np.uint8:
         raise RuntimeError(f"{tag}: halfway texture has shape {blend.shape} {blend.dtype}")
     return prob, rec
@@ -1025,6 +1066,191 @@ def twolevel_path(spmv, root, paths, size, vf_mode: int, tag: str):
     with open(os.path.join(WORK, f"main_path_{tag}.json"), "w") as f:
         json.dump(rec, f, indent=1)
     return prob, rec
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch's deterministic algorithms for the block: the accumulating
+    scatters (index_add_, index_put_) otherwise sum in no fixed order on
+    CUDA, which moves a float32 draw's final alignment error by a few 1e-6
+    relative from one run to the next."""
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def mf_path(spmv, root, paths, size, mg_rec):
+    """Phase 6e: the multigrid cell's size, CLI defaults otherwise, with
+    --flowBackend xla (the three-level multigrid cycle for the flow and the
+    smoothing solves), then with --flowBackend mf (the multifrontal direct
+    flow solve, the same three-level smoothing cycle); then one
+    factorization and one solve of the final state's level system, timed
+    alone. Then both problems run their ten levels again from the initial
+    state under torch's deterministic algorithms, so that what tells them
+    apart is the flow solve and not the order of atomic sums: the mf
+    run's final alignment error is held to the xla run's (the draws'
+    distance, and the mf draw's to phase 6's, whose smoothing is the
+    Hopper-kernel cycle, are recorded). Returns the two records."""
+    import torch
+    from meshopticalflow_tpu_torch.apps.optical_flow import build_parser, config_from_args
+    from meshopticalflow_tpu_torch.ops.ell import ell_matvec
+    from meshopticalflow_tpu_torch.solvers.multifrontal import _factor, _solve
+
+    def config(backend):
+        return config_from_args(build_parser().parse_args(
+            ["--mesh", root, "--in", *paths, "--out", "unused.png", "--flowBackend", backend]))
+
+    cfg = config("mf")
+    xla_prob, xla_rec = drive(spmv, root, paths, size, config("xla"), "xla", "6e")
+    prob, rec = drive(spmv, root, paths, size, cfg, "mf", "6e")
+    _check_draw("xla", xla_rec["launches"], [xla_rec["init_s"], xla_rec["levels_s"]])
+    counts = rec["launches"]
+    _check_draw("mf", counts, [rec["init_s"], rec["levels_s"]])
+    if prob.nd is None or (prob.hier.flow_kind, prob.hier.smooth_kind) != ("xla", "xla"):
+        raise RuntimeError("mf: no multifrontal context, or not the three-level cycles")
+    if launches_where(counts, dtype="bf16"):
+        raise RuntimeError(f"mf: the Hopper multigrid cycle ran: {counts}")
+    pack = prob.nd.pack
+    fronts = [dict(fronts=int(d.rows.shape[0]), epad=d.epad, bpad=d.bpad)
+              for d in pack.levels]
+    system = _final_systems(prob)
+    levels, vals, rhs = prob.nd.levels_dev, system["sys_vals"], system["rhs"]
+    factors = _factor(levels, vals)
+    x = _solve(levels, factors, rhs)
+    r = rhs.double() - ell_matvec(prob.arrays.basis.ell_cols, vals.double(), x.double())
+    solve_rel = float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(rhs.double()))
+    timing = dict(
+        factor_device_ms=median_ms(lambda: _factor(levels, vals), reps=5, inner=1),
+        factor_issued_ms=issue_ms(lambda: _factor(levels, vals), reps=5, inner=1),
+        solve_device_ms=median_ms(lambda: _solve(levels, factors, rhs), reps=9, inner=1),
+        solve_issued_ms=issue_ms(lambda: _solve(levels, factors, rhs), reps=9, inner=1))
+    del factors
+    deterministic = {}
+    with deterministic_algorithms():
+        for tag, p in (("xla", xla_prob), ("mf", prob)):
+            p.coeffs, p.tfield = torch.zeros_like(p.coeffs), torch.zeros_like(p.tfield)
+            p._warm_x = None
+            deterministic[tag] = p.run().metrics[-1]["alignment_error"]
+    del xla_prob
+    fallbacks = [int(m["mf_fallback"]) for m in rec["levels"]]
+    ref, final = deterministic["xla"], deterministic["mf"]
+    mg = mg_rec["levels"][-1]["alignment_error"]
+    draw, xla_draw = rec["levels"][-1]["alignment_error"], xla_rec["levels"][-1]["alignment_error"]
+    rec.update(nd=dict(nd_pack_s=prob.init_profile["nd_pack"], stats=pack.stats,
+                       fronts=fronts, unknowns=pack.n, ell_width=pack.w,
+                       last_system_rel_residual_one_solve=solve_rel, **timing),
+               mf_fallback=fallbacks, final_alignment_error=draw,
+               xla_final_alignment_error=xla_draw, multigrid_final_alignment_error=mg,
+               deterministic_final_alignment_error=deterministic,
+               alignment_rel_to_xla=abs(final - ref) / abs(ref),
+               draw_alignment_rel_to_xla=abs(draw - xla_draw) / abs(xla_draw),
+               alignment_rel_to_multigrid=abs(draw - mg) / abs(mg),
+               xla_levels_s=xla_rec["levels_s"],
+               xla_flow_iters=[m["flow_iters"] for m in xla_rec["levels"]])
+    with open(os.path.join(WORK, "main_path_mf.json"), "w") as f:
+        json.dump(rec, f, indent=1)
+    phase("6e", f"nd pack {prob.init_profile['nd_pack']:.2f} s: {json.dumps(pack.stats)}, "
+                f"{sum(d['fronts'] for d in fronts)} fronts, largest "
+                f"{max(d['epad'] + d['bpad'] for d in fronts)} rows, per depth (fronts, epad, "
+                f"bpad) " + ", ".join(f"({d['fronts']}, {d['epad']}, {d['bpad']})"
+                                      for d in fronts))
+    phase("6e", "one factorization {factor_device_ms:.3f} ms of device time, issued in "
+                "{factor_issued_ms:.3f} ms; one solve {solve_device_ms:.3f} ms, issued in "
+                "{solve_issued_ms:.3f} ms".format(**timing)
+                + f"; one solve's relative residual {solve_rel:.3e} (float32 factor)")
+    phase("6e", "refinement rounds per level " + ", ".join(
+        f"{m['flow_iters']:.0f}" for m in rec["levels"]) + "; fallback per level (0 direct, "
+        "1 shifted refactor, 2 multigrid) " + ", ".join(map(str, fallbacks)))
+    phase("6e", f"final alignment error {draw:.6f}; xla draw {xla_draw:.6f}: relative "
+                f"difference {rec['draw_alignment_rel_to_xla']:.3e}; phase 6's draw "
+                f"{mg:.6f}: {rec['alignment_rel_to_multigrid']:.3e}")
+    phase("6e", f"the levels again under deterministic algorithms: mf {final:.6f}, xla "
+                f"{ref:.6f}: relative difference {rec['alignment_rel_to_xla']:.3e} "
+                f"(<= {MF_ALIGNMENT_REL})")
+    for tag, r in (("xla", xla_rec), ("mf", rec)):
+        worst = max(m["flow_res"] for m in r["levels"])
+        if worst > 10 * cfg.flow_refine_tol:
+            raise RuntimeError(f"{tag}: a level's flow_res {worst:.3e} is above 10 x "
+                               f"flow_refine_tol")
+    if not rec["alignment_rel_to_xla"] <= MF_ALIGNMENT_REL:
+        raise RuntimeError(f"mf: final alignment error {final} differs from the xla "
+                           f"run's {ref} by more than {MF_ALIGNMENT_REL} relative")
+    return xla_rec, rec
+
+
+def warm_init_path(spmv, root, paths, size):
+    """Phase 6c, first half: the multigrid cell built twice in one process
+    with the artifact cache on ($MESHFLOW_CACHE is the run's scratch), each
+    run for WARM_LEVELS levels under torch's deterministic algorithms. The
+    second construction must hold the first one's device tensors and
+    compute its tfield and alignment errors exactly."""
+    import torch
+    from meshopticalflow_tpu_torch.apps.optical_flow import build_parser, config_from_args
+    from meshopticalflow_tpu_torch.flow.pipeline import FlowProblem
+    from meshopticalflow_tpu_torch.utils import artifacts, devcache
+
+    cfg = config_from_args(build_parser().parse_args(
+        ["--mesh", root, "--in", *paths, "--out", "unused.png",
+         "--iterations", str(WARM_LEVELS)]))
+    if not cfg.artifact_cache:
+        raise RuntimeError("the CLI default does not use the artifact cache")
+    devcache.clear()
+    torch.cuda.synchronize()
+    spmv.reset_counts()
+    runs = []
+    with deterministic_algorithms():
+        for _ in range(2):
+            t0 = time.time()
+            prob = FlowProblem.from_texture_inputs(root, tuple(paths), cfg, device=DEVICE)
+            torch.cuda.synchronize()
+            init_s = time.time() - t0
+            t0 = time.time()
+            res = prob.run()
+            torch.cuda.synchronize()
+            runs.append((prob, res, init_s, time.time() - t0))
+    counts = spmv.counts()
+    (p1, r1, init1, run1), (p2, r2, init2, run2) = runs
+    shared = {
+        "basis": p2.arrays.basis.ell_cols is p1.arrays.basis.ell_cols,
+        "trace_tables": p2.arrays.tm is p1.arrays.tm,
+        "texel_table": p2.src_t is p1.src_t and p2.src_p is p1.src_p,
+        "textures": p2.textures is p1.textures,
+        "signals": p2.arrays.signals is p1.arrays.signals,
+        "hierarchy": p2.hier.coarse is p1.hier.coarse
+        and p2.hier.patch.c1_band is p1.hier.patch.c1_band}
+    same_tfield = bool(np.array_equal(r1.tfield, r2.tfield))
+    align = [[m["alignment_error"] for m in r.metrics] for r in (r1, r2)]
+    cache = artifacts.cache_dir()
+    files = sorted(os.listdir(cache))
+    rec = dict(levels=WARM_LEVELS, init_s=[init1, init2], levels_s=[run1, run2],
+               init_profile=[p1.init_profile, p2.init_profile], shared=shared,
+               same_tfield=same_tfield, alignment_error=align, launches=counts,
+               artifact_files=files,
+               artifact_mb=sum(os.path.getsize(os.path.join(cache, f)) for f in files) / 1e6)
+    with open(os.path.join(WORK, "main_path_warm_init.json"), "w") as f:
+        json.dump(rec, f, indent=1)
+    for k, (prob, init_s) in enumerate(((p1, init1), (p2, init2))):
+        phase("6c", f"construction {k + 1} ({'cold' if k == 0 else 'warm'}): init "
+                    f"{init_s:.2f} s; init profile " + json.dumps(rounded(prob.init_profile)))
+    phase("6c", f"levels {run1:.2f} s / {run2:.2f} s; {len(files)} artifact files, "
+                f"{rec['artifact_mb']:.1f} MB; shared tensors {json.dumps(shared)}; "
+                f"tfield equal bit for bit: {same_tfield}")
+    _check_draw("warm_init", counts, [init1, init2, run1, run2] + align[0] + align[1])
+    if not all(shared.values()):
+        raise RuntimeError(f"warm init: the second construction rebuilt {shared}")
+    if not same_tfield or align[0] != align[1]:
+        raise RuntimeError("warm init: the second construction computed other numbers")
+    for prob in (p1, p2):
+        if prob.init_profile["raster_path"] != "native":
+            raise RuntimeError("warm init: the texel table did not come from the native "
+                               "rasterizer")
+    del runs, p1, p2
+    devcache.clear()
+    return rec
 
 
 def _final_systems(prob):
@@ -1167,7 +1393,10 @@ def tracking_path(spmv, paths, size, scratch: str):
                     f"{p['level_seconds']:.2f} s, flow_iters "
                     f"{', '.join(f'{i:.0f}' for i in p['flow_iters'])}, alignment error "
                     f"{p['alignment_error']:.6f}; init profile "
-                    + json.dumps({k: round(v, 3) for k, v in p["init_profile"].items()}))
+                    + json.dumps(rounded(p["init_profile"])))
+    phase("6c", "pair init with the artifact cache on: " + ", ".join(
+        f"pair {p['pair']} {p['init_seconds']:.2f} s" for p in pairs)
+        + " (pair 2 reuses pair 1's mesh tables and basis)")
     phase("6c", f"{rec['triangles']} triangles, {rec['vertices']} vertices from {size}^2: bake "
                 f"{bake_s:.2f} s, tracker {total_s:.2f} s, composed resample "
                 f"{rec['composed_s']:.3f} s; peak {rec['peak_mem_gb']:.2f} GB")
@@ -1535,7 +1764,20 @@ def main() -> int:
     t_start = time.time()
     card = card_line()
     phase(1, f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    # the artifact cache, the baked frames, the tracker's and the spectrum's
+    # outputs (hundreds of MB) stay out of the records directory
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=REPO) as scratch:
+        os.environ["MESHFLOW_CACHE"] = os.path.join(scratch, "artifacts")
+        return run_phases(card, scratch, t_start)
+
+
+def run_phases(card: str, scratch: str, t_start: float) -> int:
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
     sys.path.insert(0, REPO)
+    from meshopticalflow_tpu_torch import native
     from meshopticalflow_tpu_torch.kernels import build, probes, spmv
 
     os.makedirs(WORK, exist_ok=True)
@@ -1543,9 +1785,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.time()
-    libs = build.build_all([spmv.LIBRARY, probes.LIBRARY])
+    with ThreadPoolExecutor(1) as pool:
+        host_lib = pool.submit(native.build)      # g++, beside the nvcc builds
+        libs = build.build_all([spmv.LIBRARY, probes.LIBRARY])
+        libs["meshhost"] = host_lib.result()
     spmv.LIBRARY.load()
     probes.LIBRARY.load()
+    if native.get_lib() is None:
+        raise RuntimeError("the native host library does not load")
     phase(2, f"built {', '.join(os.path.relpath(p, REPO) for p in libs.values())} "
              f"in {time.time() - t0:.2f} s")
 
@@ -1565,14 +1812,15 @@ def main() -> int:
         operators += twolevel_operators(tprob, tag, f64=tag == "conformal",
                                         vertex=tag == "conformal")
         del tprob
-
     torch.cuda.empty_cache()
-    # the baked frames, the tracker's and the spectrum's outputs (~100 MB)
-    # stay out of the records directory
-    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=REPO) as scratch:
-        draws["tracking"] = tracking_path(spmv, paths, size, scratch)
-        torch.cuda.empty_cache()
-        draws["spectrum"], spectrum_ops = spectrum_path(spmv, scratch)
+    draws["xla"], draws["mf"] = mf_path(spmv, root, paths, size, mg_rec)
+    torch.cuda.empty_cache()
+    draws["warm_init"] = warm_init_path(spmv, root, paths, size)
+    torch.cuda.empty_cache()
+
+    draws["tracking"] = tracking_path(spmv, paths, size, scratch)
+    torch.cuda.empty_cache()
+    draws["spectrum"], spectrum_ops = spectrum_path(spmv, scratch)
     operators += spectrum_operators(*spectrum_ops)
 
     rates = dict(hbm_copy_tb_s=copy_rate_tb_s(2 ** 30), l2_copy_tb_s=copy_rate_tb_s(2 ** 24))
@@ -1599,7 +1847,8 @@ def main() -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], ms_cold=r["ms_cold"], issue_ms=r["issue_ms"],
             **{f"launches_{tag}_path": draws[tag]["launches"][name]
-               for tag in ("jacobi", "conformal", "connection", "tracking", "spectrum")}))
+               for tag in ("jacobi", "conformal", "connection", "xla", "mf", "warm_init",
+                           "tracking", "spectrum")}))
     for fn_name, rec in probe_report.items():
         kernels.append(dict(
             name=fn_name, route="cuda", source="meshopticalflow_tpu_torch/csrc/probes.cu",
@@ -1613,6 +1862,8 @@ def main() -> int:
                        iteration_split=split, sweeps=mg_rec["sweeps"], goldens=goldens,
                        twolevel_split={t: draws[t]["split"] for t in ("conformal",
                                                                       "connection")},
+                       mf=draws["mf"]["nd"], warm_init={k: draws["warm_init"][k] for k in (
+                           "init_s", "levels_s", "shared", "same_tfield", "artifact_mb")},
                        seconds=elapsed), f, indent=1)
     phase(8, f"all phases passed in {elapsed:.1f} s")
     print(card)

@@ -8,12 +8,14 @@ Usage:
     python -m meshopticalflow_tpu_torch.apps.optical_flow --serve [options]
 
 The flags are the reference CLI's: the basis (--vfMode 0 Whitney, 1
-Conformal, 2 Connection; --cMode; --divFree), the multigrid backend
-(--flowBackend auto/pallas: the Hopper-kernel cycle, xla: the three-level
-cycle; the Conformal and Connection bases take the two-level cycle), the
-host direct-solve oracle (--hostSolve), per-level dumps (--debug, into the
-working directory) and --serve, a worker that reads one JSON job per stdin
-line and prints one JSON result line per job. --out is required: the
+Conformal, 2 Connection; --cMode; --divFree), the flow solver
+(--flowBackend auto/pallas: the Hopper-kernel multigrid cycle, xla: the
+three-level cycle, mf: the multifrontal direct solve; the Conformal and
+Connection bases take the two-level cycle), the host direct-solve oracle
+(--hostSolve), per-level dumps (--debug, into the working directory) and
+--serve, a worker that reads one JSON job per stdin line and prints one JSON
+result line per job; jobs over one mesh share its init state through the
+artifact and device caches ($MESHFLOW_CACHE, utils/devcache.py). --out is required: the
 reference's viewer is not ported. ``--device cuda`` (the default) raises
 when no GPU is available; it never falls back to the CPU.
 """
@@ -88,9 +90,10 @@ def add_alignment_flags(p: argparse.ArgumentParser) -> None:
                    help="device dtype")
     p.add_argument("--hostSolve", action="store_true",
                    help="solve each level's flow system on the host (scipy direct solve)")
-    p.add_argument("--flowBackend", default="auto", choices=("auto", "pallas", "xla"),
-                   help="multigrid flow solver: auto/pallas = the Hopper-kernel cycle "
-                        "with the exact banded coarse solve, xla = the three-level cycle")
+    p.add_argument("--flowBackend", default="auto", choices=("auto", "pallas", "xla", "mf"),
+                   help="flow solver: auto/pallas = the Hopper-kernel multigrid cycle "
+                        "with the exact banded coarse solve, xla = the three-level cycle, "
+                        "mf = the multifrontal direct solve")
 
 
 def config_from_args(args) -> FlowConfig:

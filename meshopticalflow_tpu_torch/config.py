@@ -157,14 +157,18 @@ def require_supported(config: FlowConfig) -> None:
     coarse solve, ``mg_c1_bf16``, ``mg_cheb_k``, ``mg_nu``, ``mg_fine_cheb``),
     "xla" the three-level cycle of solvers/mg3.py; without a patch level
     (non-Whitney bases) or with ``flow_mg_levels`` 2 the flow solve is the
-    two-level cycle of solvers/twolevel.py. ``use_host_cholesky`` solves each
-    level on the host with scipy. Not ported: the multifrontal direct solve
-    (``flow_backend="mf"``) and the sharded halo cycle ("halo").
-    ``artifact_cache`` only speeds up the reference package's init and
-    changes no result here.
+    two-level cycle of solvers/twolevel.py. ``flow_backend="mf"`` takes the
+    multifrontal direct solve of solvers/multifrontal.py at every level, with
+    the three-level cycle of solvers/mg3.py for the smoothing solves and as
+    the flow solve's fallback. ``use_host_cholesky`` solves each level on the
+    host with scipy. Not ported: the sharded halo cycle ("halo").
+    ``artifact_cache`` serves the per-mesh init work from the disk artifact
+    cache (utils/artifacts.py, $MESHFLOW_CACHE) and the device state from
+    the process device cache (utils/devcache.py), as in the reference
+    package; it changes no result.
     """
     refused = []
-    if config.flow_backend not in ("auto", "pallas", "xla"):
+    if config.flow_backend not in ("auto", "pallas", "xla", "mf"):
         refused.append(f"flow_backend={config.flow_backend!r}")
     if config.dtype not in ("float32", "float64"):
         refused.append(f"dtype={config.dtype!r}")

@@ -59,15 +59,15 @@ def problem_arrays(ref, dtype=torch.float64, device="cpu") -> ProblemArrays:
         area=_leaf("area", ref.area, dtype, device))
 
 
-def load_state(problem: FlowProblem, ref_problem) -> None:
+def load_state(problem: FlowProblem, ref_problem, texel_table: bool = True) -> None:
     """Copy a reference FlowProblem's state into ``problem``: its device
-    arrays, coeffs, tfield and (texture problems) the exp-remapped texel
-    table."""
+    arrays, coeffs, tfield and (texture problems, with ``texel_table``) the
+    exp-remapped texel table."""
     dtype, device = problem.dtype, problem.device
     problem.arrays = problem_arrays(ref_problem.arrays, dtype, device)
     problem.coeffs = _leaf("coeffs", ref_problem.coeffs, dtype, device)
     problem.tfield = _leaf("tfield", ref_problem.tfield, dtype, device)
-    if getattr(ref_problem, "texture_source", None) is not None:
+    if texel_table and getattr(ref_problem, "texture_source", None) is not None:
         problem.src_t = _leaf("src_t", ref_problem.src_t, dtype, device)
         problem.src_p = _leaf("src_p", ref_problem.src_p, dtype, device)
         problem._advect_order = None

@@ -97,7 +97,12 @@ def _half_edge_opposites(triangles: np.ndarray) -> np.ndarray:
 
     Edge index 3t + (v+2)%3 carries the directed half-edge
     (tri[t][v] -> tri[t][(v+1)%3]); its opposite carries the reverse.
+    Uses the native C++ hash-map kernel when available.
     """
+    from meshopticalflow_tpu_torch import native
+    opp_native = native.half_edge_opposites(triangles)
+    if opp_native is not None:
+        return opp_native
     t_count = len(triangles)
     v0 = triangles  # corner v
     v1 = triangles[:, [1, 2, 0]]  # corner (v+1)%3

@@ -67,13 +67,24 @@ def _repeat_ranges(starts: np.ndarray, counts: np.ndarray) -> Tuple[np.ndarray, 
 
 
 def rasterize_texture_source(face_uvs: np.ndarray, width: int, height: int,
-                             pad_radius: int = 2) -> TextureSource:
+                             pad_radius: int = 2,
+                             use_native: bool = True) -> TextureSource:
     """Rasterize all uv triangles and dilate (MeshFlow.inl:410-455).
 
-    face_uvs: (T, 3, 2) wedge uv coordinates in [0, 1]. This is the numpy
-    scanline rasterizer of the reference package (its oracle path).
+    face_uvs: (T, 3, 2) wedge uv coordinates in [0, 1]. Uses the native C++
+    scanline kernel (meshopticalflow_tpu_torch/native) when available; this
+    numpy implementation is the oracle and fallback.
     """
     face_uvs = np.asarray(face_uvs, np.float64)
+    if use_native:
+        from meshopticalflow_tpu_torch import native
+        result = native.rasterize(face_uvs, width, height, pad_radius)
+        if result is not None:
+            tri_idx, bary = result
+            inside = (bary[:, 0] >= 0) & (bary[:, 1] >= 0) & (bary.sum(1) <= 1)
+            needs_remap = (tri_idx != -1) & ~inside
+            return TextureSource(tri_idx.astype(np.int32), bary, needs_remap,
+                                 width, height)
     t_count = len(face_uvs)
     scale = np.array([width - 1, height - 1], np.float64)
     v = face_uvs * scale  # (T, 3, 2) lattice coordinates

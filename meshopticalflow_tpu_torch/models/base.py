@@ -197,6 +197,20 @@ def finalize_flow_step(basis: BasisDevice, coeffs, x, dt_vals, rhs):
     return new_coeffs, prolong(basis, new_coeffs)
 
 
+def device_block(level, name: str, like: torch.Tensor) -> torch.Tensor:
+    """A dense patch-level block (``s2_dense``, ``m2_dense``, ``k2_dense``)
+    as a tensor of ``like``'s device and dtype. Under the exact banded
+    coarse solve the hierarchy keeps these fallback-only blocks on the host,
+    possibly as unread npz members (utils/artifacts.LazyNpzArray); the first
+    use uploads one and keeps it on ``level``."""
+    block = getattr(level, name)
+    if not isinstance(block, torch.Tensor):
+        block = torch.as_tensor(np.ascontiguousarray(np.asarray(block))).to(
+            device=like.device, dtype=like.dtype)
+        setattr(level, name, block)
+    return block
+
+
 def _make_mg_solver(basis, coarse, patch, d_blocks, scale, vf_smooth_weight, sys_vals,
                     diag, kind, mg_cheb_k, mg_nu, mg_fine_cheb, mg_coarse_exact,
                     mg_c1_bf16=False):
@@ -222,7 +236,7 @@ def _make_mg_solver(basis, coarse, patch, d_blocks, scale, vf_smooth_weight, sys
                 solver = None
         if solver is None:
             a2 = patch_system_dense(patch.q2_idx, patch.q2_wt, d_blocks, scale,
-                                    vf_smooth_weight, patch.s2_dense)
+                                    vf_smooth_weight, device_block(patch, "s2_dense", sys_vals))
             solver = MG3Solver(patch.mg_pack, sys_vals, diag, c_vals, c_diag, a2,
                                cheb_k=mg_cheb_k, nu=mg_nu)
         return solver
@@ -230,7 +244,7 @@ def _make_mg_solver(basis, coarse, patch, d_blocks, scale, vf_smooth_weight, sys
         from meshopticalflow_tpu_torch.solvers.mg3 import ThreeLevelSolver
 
         a2 = patch_system_dense(patch.q2_idx, patch.q2_wt, d_blocks, scale,
-                                vf_smooth_weight, patch.s2_dense)
+                                vf_smooth_weight, device_block(patch, "s2_dense", sys_vals))
         return ThreeLevelSolver(basis.ell_cols, sys_vals, diag,
                                 coarse.coarse_dev.ell_cols, c_vals, c_diag,
                                 coarse.transfer, a2, patch.transfer, nu=4)
@@ -277,17 +291,28 @@ def update_optical_flow(
     refine_tol: float = 3e-9,
     refine_floor: float = 1e-5,
     solve_info: Optional[dict] = None,
+    nd=None,           # solvers.multifrontal.NDContext: the direct per-level
+                       # solve (flow_backend="mf"); MG is its fallback
 ):
     """One Gauss-Newton flow step (VectorField::UpdateOpticalFlow,
     VectorField.h:46-104): system assembly, the solve, step finalize.
 
     ``use_host_cholesky`` solves on the host (``host_direct_solve``, zero
-    iterations). With the hierarchy (``coarse``) the solve is a multigrid
-    PCG (``_make_mg_solver``) inside the adaptive refinement loop, with the
-    inner call the reference makes (models/base.py:606-611); without it,
-    Jacobi-PCG inside refinement when ``refine``. A multigrid solve fills
-    ``solve_info`` (when given) with the solver's streamed GB per iteration
-    and its coarse factorization seconds.
+    iterations). With an ``nd`` context the solve is the multifrontal
+    direct solve (solvers/multifrontal.py) inside the refinement loop, one
+    triangular-sweep pair a round (the reference's non-df32 path,
+    models/base.py:557-565); when its relative residual misses
+    max(100 * refine_tol, 1e-7) (a float32 factor that broke down, or an
+    accuracy miss), the level is refactored under a 1e-6 relative diagonal
+    shift, and if that misses too, handed to the multigrid solver
+    (models/base.py:608-626). With the hierarchy (``coarse``) alone the
+    solve is a multigrid PCG (``_make_mg_solver``) inside the adaptive
+    refinement loop, with the inner call the reference makes
+    (models/base.py:606-611); without either, Jacobi-PCG inside refinement
+    when ``refine``. Both fill ``solve_info`` (when given) with the solver's
+    streamed GB per iteration and its factorization seconds; under ``nd``
+    also ``mf_fallback``: 0 the direct solve, 1 the shifted refactor, 2 the
+    multigrid solver.
 
     Returns (new_coeffs, tfield, solve_stats, x) where x is the solved
     direction (the next level's warm start when that is enabled)."""
@@ -301,7 +326,7 @@ def update_optical_flow(
     if use_host_cholesky:
         x = host_direct_solve(basis.ell_cols, sys_vals, rhs)
         stats = CGStats(0, 0.0)
-    elif coarse is not None:
+    elif coarse is not None or nd is not None:
         from meshopticalflow_tpu_torch.solvers.mg import BandedBreakdownError
 
         def build(exact):
@@ -320,17 +345,49 @@ def update_optical_flow(
                     max_iters=min(cg_max_iters, 120), b_norm2=rn2),
                 tol=refine_tol, inner_floor=refine_floor, x0=x0)
 
-        solver = build(mg_coarse_exact)
-        try:
-            x, stats = run(solver)
-        except BandedBreakdownError:
-            # the deferred c1 check failed at every shift mid-solve: redo the
-            # solve with the dense-patch coarsest
-            solver = build(False)
-            x, stats = run(solver)
+        def run_direct(solver):
+            # a warm start is pointless against an exact solve: x0 is ignored
+            if not refine:
+                return solver.solve(rhs)
+            return refine_loop(basis.ell_cols, sys_vals, rhs,
+                               lambda r, tol_inner, rn2=None: solver.solve(r),
+                               tol=refine_tol, inner_floor=refine_floor)
+
+        def run_mg():
+            solver = build(mg_coarse_exact)
+            try:
+                return solver, run(solver)
+            except BandedBreakdownError:
+                # the deferred c1 check failed at every shift mid-solve: redo
+                # the solve with the dense-patch coarsest
+                solver = build(False)
+                return solver, run(solver)
+
+        fallback = None
+        if nd is not None:
+            from meshopticalflow_tpu_torch.solvers.multifrontal import NDSolver
+
+            def missed(stats):
+                return not float(stats.rel_residual) <= max(100 * refine_tol, 1e-7)
+
+            solver = NDSolver(nd.pack, nd.levels_dev, sys_vals)
+            x, stats = run_direct(solver)
+            fallback = 0
+            if missed(stats):
+                solver = NDSolver(nd.pack, nd.levels_dev, sys_vals,
+                                  diag_slot=basis.diag_slot, shift_rel=1e-6)
+                x, stats = run_direct(solver)
+                fallback = 1
+                if missed(stats) and coarse is not None:
+                    solver, (x, stats) = run_mg()
+                    fallback = 2
+        else:
+            solver, (x, stats) = run_mg()
         if solve_info is not None:
             solve_info.update(gb_per_iter=solver.gb_per_iter,
                               factor_s=solver.factor_seconds)
+            if fallback is not None:
+                solve_info["mf_fallback"] = fallback
     elif refine:
         x, stats = ell_solve_refined(basis.ell_cols, sys_vals, diag, rhs,
                                      inner_tol=max(cg_tol, 1e-6),

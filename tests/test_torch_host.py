@@ -44,7 +44,8 @@ from meshopticalflow_tpu_torch.ops import ell as t_ell
 # machine and under any number of test workers.
 torch.set_num_threads(1)
 
-GOLD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLD = os.path.join(REPO, "tests", "golden")
 
 
 def _cube(edge_fraction=0.08):
@@ -117,7 +118,7 @@ def test_rasterizer():
     uvs = j_subdiv.subdivide_tracked(tris0, verts0, uvs0, edge)[2]
     for w, h, pad in ((64, 64, 2), (96, 80, 1)):
         a = j_raster.rasterize_texture_source(uvs, w, h, pad, use_native=False)
-        b = t_raster.rasterize_texture_source(uvs, w, h, pad)
+        b = t_raster.rasterize_texture_source(uvs, w, h, pad, use_native=False)
         for field in ("tri_idx", "bary", "needs_remap"):
             _assert_same(getattr(a, field), getattr(b, field))
 
@@ -179,7 +180,7 @@ def test_config_matches_reference_fields():
     assert a == b
 
 
-UNPORTED = (dict(flow_backend="mf"), dict(flow_backend="halo"), dict(dtype="bfloat16"))
+UNPORTED = (dict(flow_backend="halo"), dict(dtype="bfloat16"))
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -190,8 +191,9 @@ UNPORTED = (dict(flow_backend="mf"), dict(flow_backend="halo"), dict(dtype="bflo
 ])
 def test_config_refuses_unported_paths(kwargs):
     """With multigrid on (as the CLI runs) and off, every basis and solver
-    the port has is accepted; the multifrontal ("mf") and sharded ("halo")
-    flow backends and dtypes other than float32/float64 are refused."""
+    the port has (the multifrontal "mf" backend included) is accepted; the
+    sharded ("halo") flow backend and dtypes other than float32/float64 are
+    refused."""
     for mg_on in (True, False):
         cfg = t_config.FlowConfig(use_multigrid=mg_on, **kwargs)
         if kwargs in UNPORTED:
@@ -464,7 +466,15 @@ HOST_COPIES = {
     "ops.fem_ops": (None, "1743f8c386c0bfb7"),
     "geometry.topology": (None, "e41c51d080690df1"),
     "utils.testing": (("octa_sphere",), "9d069d94bb707c99"),
+    "utils.artifacts": (("cache_dir", "file_hash", "key_of", "_flatten", "LazyNpzArray",
+                         "_unflatten", "cached"), "37e413a683946f1c"),
+    "solvers.multifrontal": (("_pad8", "dof_positions", "nested_dissection",
+                              "front_structure", "_DepthTables", "NDPack",
+                              "build_nd_pack"), "90ceae72548bf34e"),
 }
+# Sources that are not Python modules, copied byte for byte: path under
+# both packages -> the pinned hash of the reference's text.
+NATIVE_COPIES = {"native/meshhost.cpp": "290385e435f6617e"}
 
 
 @pytest.mark.parametrize("module", sorted(HOST_COPIES))
@@ -477,3 +487,13 @@ def test_host_copy_tracks_reference(module):
         f"meshopticalflow_tpu/{module.replace('.', '/')}.py changed since the "
         f"port copied it into meshopticalflow_tpu_torch: port the change")
     importlib.import_module(f"meshopticalflow_tpu_torch.{module}")
+
+
+@pytest.mark.parametrize("path", sorted(NATIVE_COPIES))
+def test_native_copy_tracks_reference(path):
+    with open(os.path.join(REPO, "meshopticalflow_tpu", path)) as f:
+        ref = f.read()
+    assert hashlib.sha256(ref.encode()).hexdigest()[:16] == NATIVE_COPIES[path], (
+        f"meshopticalflow_tpu/{path} changed since the port copied it: port the change")
+    with open(os.path.join(REPO, "meshopticalflow_tpu_torch", path)) as f:
+        assert f.read() == ref

@@ -45,13 +45,20 @@ from meshopticalflow_tpu_torch.io.png import read_png_rgb
 # machine and under any number of test workers.
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _artifact_dir(tmp_path, monkeypatch):
+    """The CLIs run with the artifact cache on (their default): keep its
+    files under the test's own directory."""
+    monkeypatch.setenv("MESHFLOW_CACHE", str(tmp_path / "artifacts"))
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = os.path.join(REPO, "tests", "golden")
 
 
 def _configs(**kw):
     kw = dict(dtype="float64", use_multigrid=False, **kw)
-    return JaxFlowConfig(artifact_cache=False, **kw), FlowConfig(**kw)
+    return JaxFlowConfig(artifact_cache=False, **kw), FlowConfig(artifact_cache=False, **kw)
 
 
 def _rel(a, b):
@@ -130,14 +137,18 @@ def test_ten_levels_match_reference(cube256):
 
 
 def test_halfway_texture_from_reference_state(cube256):
-    """From the reference's final state and texel table, the port's halfway
-    texture matches the reference's to one u8 level. The truncating cast
-    flips a texel by one level where the bilinear blend lands within a few
-    ulps of an integer (flat-colour regions) and the two packages round the
-    four-term blend differently (XLA contracts it to FMAs): 0.8 % of the
-    texels at this size."""
+    """From the reference's final state, with the port's own texel table
+    (both packages rasterize with the same native library, so the tables
+    agree), the port's halfway texture matches the reference's to one u8
+    level. The truncating cast flips a texel by one level where the bilinear
+    blend lands within a few ulps of an integer (flat-colour regions) and
+    the two packages round the four-term blend differently (XLA contracts
+    it to FMAs): 0.8 % of the texels at this size."""
     jp, _, tp, _ = cube256
-    convert.load_state(tp, jp)
+    assert tp.init_profile["raster_path"] == "native"
+    np.testing.assert_array_equal(tp.src_t.numpy(), np.asarray(jp.src_t))
+    np.testing.assert_allclose(tp.src_p.numpy(), np.asarray(jp.src_p), rtol=0, atol=1e-12)
+    convert.load_state(tp, jp, texel_table=False)
     ours, ref = tp.halfway_texture(), np.asarray(jp.halfway_texture())
     diff = np.abs(ours.astype(int) - ref.astype(int))
     assert ours.shape == ref.shape == (256, 256, 3) and ours.dtype == np.uint8
@@ -220,13 +231,13 @@ def test_cli_cuda_without_gpu_raises(tmp_path, monkeypatch):
 
 
 def test_port_refuses_multigrid_config():
-    """The flow backends the port lacks (the multifrontal direct solve and
-    the sharded halo cycle) are refused at construction."""
+    """The flow backend the port lacks (the sharded halo cycle) is refused
+    at construction."""
     tris, verts, s0, s1 = sphere_signal_pair(2)
-    for cfg in (FlowConfig(flow_backend="mf"), FlowConfig(flow_backend="halo")):
-        with pytest.raises(NotImplementedError):
-            t_pipeline.FlowProblem(cfg, t_build_mesh(tris, vertices=verts),
-                                   np.stack([s0, s1]), device="cpu")
+    with pytest.raises(NotImplementedError):
+        t_pipeline.FlowProblem(FlowConfig(flow_backend="halo"),
+                               t_build_mesh(tris, vertices=verts), np.stack([s0, s1]),
+                               device="cpu")
 
 
 def _mg_problems(dtype, edge, levels, paths):
@@ -234,8 +245,8 @@ def _mg_problems(dtype, edge, levels, paths):
     mesh = os.path.join(GOLD, "cube.ply")
     jp = j_pipeline.FlowProblem.from_texture_inputs(
         mesh, paths, JaxFlowConfig(artifact_cache=False, **kw))
-    tp = t_pipeline.FlowProblem.from_texture_inputs(mesh, paths, FlowConfig(**kw),
-                                                    device="cpu")
+    tp = t_pipeline.FlowProblem.from_texture_inputs(
+        mesh, paths, FlowConfig(artifact_cache=False, **kw), device="cpu")
     return jp, jp.run(), tp, tp.run()
 
 
@@ -302,6 +313,9 @@ def test_port_sources_import_no_jax():
     for root, _, files in os.walk(pkg):
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
     assert len(sources) > 30
+    for module in ("native/__init__.py", "utils/artifacts.py", "utils/devcache.py",
+                   "solvers/multifrontal.py"):
+        assert os.path.join(pkg, module) in sources
     bad = {}
     for path in sources:
         with open(path) as f:

@@ -209,8 +209,8 @@ def test_texture_outputs_from_reference_state():
     jp = j_pipeline.FlowProblem.from_texture_inputs(
         mesh, paths, JaxFlowConfig(artifact_cache=False, **kw))
     jp.run()
-    tp = t_pipeline.FlowProblem.from_texture_inputs(mesh, paths, FlowConfig(**kw),
-                                                    device="cpu")
+    tp = t_pipeline.FlowProblem.from_texture_inputs(
+        mesh, paths, FlowConfig(artifact_cache=False, **kw), device="cpu")
     convert.load_state(tp, jp)
     assert np.abs(np.asarray(jp.tfield)).max() > 0
     np.testing.assert_allclose(tp.advected_textures(), np.asarray(jp.advected_textures()),

@@ -268,8 +268,8 @@ def test_texture_run_matches_reference(name):
     jp = j_pipeline.FlowProblem.from_texture_inputs(
         mesh, paths, JaxFlowConfig(artifact_cache=False, **kw))
     ref = jp.run()
-    tp = t_pipeline.FlowProblem.from_texture_inputs(mesh, paths, FlowConfig(**kw),
-                                                    device="cpu")
+    tp = t_pipeline.FlowProblem.from_texture_inputs(
+        mesh, paths, FlowConfig(artifact_cache=False, **kw), device="cpu")
     ours = tp.run()
     whitney = kw.get("vf_mode", 0) == 0
     assert (tp.hier.patch is not None) == whitney
@@ -299,7 +299,7 @@ def test_golden_cube256_through_other_solvers(tmp_path, kw):
     from meshopticalflow_tpu_torch.flow import pipeline as t_pipeline
     from meshopticalflow_tpu_torch.io.png import read_png_rgb
 
-    cfg = FlowConfig(dtype="float64", subdivide_edge_length=0.06, **kw)
+    cfg = FlowConfig(dtype="float64", subdivide_edge_length=0.06, artifact_cache=False, **kw)
     prob = t_pipeline.FlowProblem.from_texture_inputs(
         os.path.join(GOLD, "cube.ply"),
         (os.path.join(GOLD, "mA.png"), os.path.join(GOLD, "mB.png")), cfg, device="cpu")
