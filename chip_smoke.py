@@ -57,6 +57,18 @@ any failure raises, so the run exits non-zero and prints no final ok line.
      deterministic algorithms, the mf final alignment error within
      MF_ALIGNMENT_REL of the xla one's (the draws' distances, and the mf
      draw's to phase 6's, are recorded);
+  6f. the halo-exchange flow solve (``--flowBackend halo``) at the
+     multigrid cell's size under a DeviceGroup of world size 1: the RCM
+     semiband and halo, flow iterations against the xla draw's, the levels'
+     stages, the launches of the halo product's rectangular form (this
+     rank's rows against x_ext = [left halo, own rows, right halo]), the
+     bytes a product exchanges; then its levels again under deterministic
+     algorithms, the final alignment error within HALO_ALIGNMENT_REL of
+     phase 6e's xla run under them. Where the machine shows two or more
+     GPUs, the halo solve also runs in 2 processes over NCCL against the
+     world-size-1 solve (``python3 chip_smoke.py --nccl`` runs that alone, at
+     2 ranks and at every GPU of the host); on one GPU the run says that it
+     did not;
   6c. the per-mesh init cache: the multigrid cell built twice in one
      process with the artifact cache on (a scratch $MESHFLOW_CACHE), at
      WARM_LEVELS levels under torch's deterministic algorithms: both
@@ -76,29 +88,37 @@ any failure raises, so the run exits non-zero and prints no final ok line.
      block-Lanczos step's device time against its issued time, and the
      eigenvalues against scipy's eigsh (sigma 1e-8) on the same host
      operators (max relative error <= 1e-3);
+  6g. the viewer's live terminal path (viz/live.py) on the card with
+     scripted key tokens, its frames into a file: view_flow steps two levels
+     of the cube at --eLength 0.018 (2048^2 inputs), whose tfield must equal a
+     run() of the same two levels bit for bit (both under deterministic
+     algorithms), then view_spectrum pages phase 6d's fields; where
+     matplotlib imports, both also export one PNG frame ('o');
   7. each SpMV kernel against its plain version at the operators of those
      problems (the f32 / bf16 / f64 flow and smoothing operators, the c1
      operator, the rectangular transfers P0 and P0^T of both hierarchies;
      the conformal and connection flow operators and their f32 transfers;
-     the spectrum's S + sigma M at 1, 4 and 8 columns),
+     the spectrum's S + sigma M at 1, 4 and 8 columns; the halo product's
+     rows, whose times also go into main_path_halo.json),
      with its launch plan, warm and cold-L2 times, the warm time with the
      scattered gather of x taken out (every slot of a row reading one x
      element), the byte bound (stored non-zeros only), cuSPARSE's time on
      the same operator, and the launches of its form (wrapper, value type,
      square or rectangular, slab or lane-group variant) in the draws of
-     phases 5, 6, 6b, 6c and 6d; then the split of one
+     phases 5 to 6g; then the split of one
      multigrid PCG iteration, each part timed alone (the sweeps' share of
      the levels is timed inside phase 6's run);
   8. the result lines.
 
-Every phase that drives a path (3, 5, 6, 6b, 6e, 6c, 6d) sets the launch
-counts to 0 just before it and reads them just after; phases 5 to 6d print
-and record the SpMV launches per form. The draws of phases 5, 6, 6b and 6e
-run with the artifact cache off, so their init is cold as in earlier
-records. The second-to-last line is a JSON record of the nine kernels; the
-last line is {"ok": true, "device": {...}}. The full records go to
-chiprun_out/chip_smoke/ (kernels.json, main_path_{jacobi,multigrid,
-conformal,connection,mf,warm_init,tracking,spectrum}.json); the artifact
+Every phase that drives a path (3, 5, 6, 6b, 6e, 6f, 6c, 6d, 6g) sets the
+launch counts to 0 just before it and reads them just after; phases 5 to 6g
+print and record the SpMV launches per form. The draws of phases 5, 6, 6b,
+6e, 6f and 6g run with the artifact cache off, so their init is cold as in
+earlier records. The second-to-last line is a JSON record of the nine
+kernels; the last line is {"ok": true, "device": {...}}. The full records
+go to chiprun_out/chip_smoke/ (kernels.json, main_path_{jacobi,multigrid,
+conformal,connection,xla,mf,halo,warm_init,tracking,spectrum,viewer}.json,
+the viewer's frames and exports under viewer/); the artifact
 cache ($MESHFLOW_CACHE), the baked frames and the CLIs' outputs to a
 scratch directory in the checkout that the run deletes.
 """
@@ -107,6 +127,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import glob
 import json
 import math
 import os
@@ -132,6 +153,12 @@ MG_ROOT_FRACTION = 0.024       # root edge length: 24,576 triangles
 # pipeline but the flow solve, both under deterministic algorithms): the
 # bound of tests/test_torch_multifrontal.py and tests/test_multifrontal.py
 MF_ALIGNMENT_REL = 1e-5
+# the halo run's final alignment error against the xla run's, both under
+# deterministic algorithms: mf's bound, as both flow solves refine to
+# flow_refine_tol; in float64 on the CPU the halo runs keep every level's
+# alignment error within 1e-6 of the solo run's and the JAX package's
+# (tests/test_torch_parallel.py, the production-run cases)
+HALO_ALIGNMENT_REL = 1e-5
 WARM_LEVELS = 3                # depth of the two warm-init constructions' runs
 DEVICE = "cuda"
 
@@ -862,11 +889,12 @@ def timed_sweeps(spans: list):
 
 
 def drive(spmv, mesh, paths, size, cfg, tag: str, n: int,
-          during_run=contextlib.nullcontext):
+          during_run=contextlib.nullcontext, device_group=None):
     """One draw through the user's entry points (from_texture_inputs -> run
     -> halfway_texture) with the launch counts set to 0 just before it and
     read just after; ``during_run()`` is entered around ``run``. The
-    artifact cache is off: the init is cold. Returns (problem, record)."""
+    artifact cache is off: the init is cold. ``device_group`` runs the
+    problem as a rank of that group. Returns (problem, record)."""
     import torch
     from meshopticalflow_tpu_torch.flow.pipeline import FlowProblem
     from meshopticalflow_tpu_torch.io.png import write_png_rgb
@@ -876,7 +904,8 @@ def drive(spmv, mesh, paths, size, cfg, tag: str, n: int,
     torch.cuda.reset_peak_memory_stats()
     spmv.reset_counts()
     t0 = time.time()
-    prob = FlowProblem.from_texture_inputs(mesh, tuple(paths), cfg, device=DEVICE)
+    prob = FlowProblem.from_texture_inputs(mesh, tuple(paths), cfg, device=DEVICE,
+                                           device_group=device_group)
     torch.cuda.synchronize()
     init_s = time.time() - t0
     t0 = time.time()
@@ -1180,6 +1209,338 @@ def mf_path(spmv, root, paths, size, mg_rec):
         raise RuntimeError(f"mf: final alignment error {final} differs from the xla "
                            f"run's {ref} by more than {MF_ALIGNMENT_REL} relative")
     return xla_rec, rec
+
+
+# ----------------------------------------------------------------------------
+# Phase 6f: the halo-exchange flow solve; phase 6g: the viewer
+# ----------------------------------------------------------------------------
+
+def _halo_layout(prob):
+    """The cached halo layout of ``prob``'s flow pattern, with the last
+    level's values (parallel/halo.py's static-layout cache)."""
+    from meshopticalflow_tpu_torch.parallel import halo
+
+    cols = prob.arrays.basis.ell_cols
+    for ent in halo._FLOW_HALO_CACHE.values():
+        if ent["ref"]() is cols:
+            return ent["h"]
+    raise RuntimeError("halo: the flow solve built no halo layout")
+
+
+def halo_operator(h):
+    """Phase 7's halo form: this rank's rows against x_ext = [left halo, own
+    rows, right halo], as one product of the halo solve runs it."""
+    import torch
+
+    xp = _rand(h.block)
+    return ("spmv_ell", "halo rows", h.cols_local, h.vals_p,
+            torch.cat([xp[-h.halo:], xp, xp[:h.halo]]))
+
+
+def halo_path(spmv, root, paths, size, xla_rec, mf_rec):
+    """Phase 6f: the multigrid cell's size, CLI defaults otherwise, with
+    --flowBackend halo under a DeviceGroup of world size 1 (the card this
+    run has): the flow solve is the halo-exchange two-level cycle of
+    parallel/halo.py (its halos copies on the device, the neighbour pairs
+    0 -> 0), the smoothing the three-level cycle phase 6e's xla draw runs.
+    Then its ten levels again from the initial state under deterministic
+    algorithms: the final alignment error is held to phase 6e's xla run
+    under them within HALO_ALIGNMENT_REL."""
+    import torch
+    from meshopticalflow_tpu_torch.apps.optical_flow import build_parser, config_from_args
+    from meshopticalflow_tpu_torch.parallel import halo
+    from meshopticalflow_tpu_torch.parallel.distributed import global_device_group
+
+    cfg = config_from_args(build_parser().parse_args(
+        ["--mesh", root, "--in", *paths, "--out", "unused.png", "--flowBackend", "halo"]))
+    group = global_device_group(DEVICE)
+    if group.world_size != 1 or group.group is not None:
+        raise RuntimeError(f"halo: expected world size 1 without a process group: {group}")
+    halo._FLOW_HALO_CACHE.clear()
+    prob, rec = drive(spmv, root, paths, size, cfg, "halo", "6f", device_group=group)
+    counts = rec["launches"]
+    _check_draw("halo", counts, [rec["init_s"], rec["levels_s"]])
+    if (prob.config.flow_backend, prob.hier.flow_kind, prob.hier.smooth_kind) != (
+            "halo", "xla", "xla"):
+        raise RuntimeError("halo: not the halo flow solve over the three-level smoothing")
+    halo_form = "spmv_ell/f32/rectangular/slab"
+    if counts["by_form"].get(halo_form, 0) == 0 or launches_where(counts, dtype="bf16"):
+        raise RuntimeError(f"halo: no launches of the halo form, or the Hopper cycle ran: "
+                           f"{counts}")
+    h = _halo_layout(prob)
+    elem = h.vals_p.element_size()
+    deterministic = {}
+    with deterministic_algorithms():
+        prob.coeffs = torch.zeros_like(prob.coeffs)
+        prob.tfield = torch.zeros_like(prob.tfield)
+        t0 = time.time()
+        deterministic["halo"] = prob.run().metrics[-1]["alignment_error"]
+        deterministic["halo_levels_s"] = time.time() - t0
+    deterministic["xla"] = mf_rec["deterministic_final_alignment_error"]["xla"]
+    rel = abs(deterministic["halo"] - deterministic["xla"]) / abs(deterministic["xla"])
+    levels = rec["levels"]
+    rec.update(
+        layout=dict(unknowns=h.n, ell_width=int(h.cols_local.shape[1]), semiband=h.halo,
+                    halo=h.halo, block=h.block, x_ext_rows=h.block + 2 * h.halo,
+                    world_size=group.world_size,
+                    bytes_exchanged_per_matvec=h.bytes_exchanged,
+                    bytes_sent_per_rank_per_matvec_at_two_or_more_ranks=2 * h.halo * elem),
+        halo_form=halo_form, halo_form_launches=counts["by_form"][halo_form],
+        flow_iters=[m["flow_iters"] for m in levels],
+        xla_flow_iters=[m["flow_iters"] for m in xla_rec["levels"]],
+        stage_s={k: sum(m[k + "_seconds"] for m in levels)
+                 for k in ("smooth", "trace", "solve")},
+        final_alignment_error=levels[-1]["alignment_error"],
+        xla_final_alignment_error=xla_rec["levels"][-1]["alignment_error"],
+        deterministic_final_alignment_error=deterministic, alignment_rel_to_xla=rel,
+        nccl="not run: one process, world size 1")
+    with open(os.path.join(WORK, "main_path_halo.json"), "w") as f:
+        json.dump(rec, f, indent=1)
+    lay = rec["layout"]
+    phase("6f", f"halo layout: {lay['unknowns']} unknowns, RCM semiband {lay['semiband']}, "
+                f"halo {lay['halo']} rows a side, block {lay['block']} rows, x_ext "
+                f"{lay['x_ext_rows']} rows; bytes exchanged a product at world size 1: "
+                f"{lay['bytes_exchanged_per_matvec']} (halos copied on the device); at two "
+                f"or more ranks each rank would send "
+                f"{lay['bytes_sent_per_rank_per_matvec_at_two_or_more_ranks']} B a product")
+    phase("6f", "flow_iters per level: halo " + ", ".join(
+        f"{i:.0f}" for i in rec["flow_iters"]) + "; xla " + ", ".join(
+        f"{i:.0f}" for i in rec["xla_flow_iters"]))
+    phase("6f", "levels {levels_s:.2f} s (smooth {smooth:.2f} / trace {trace:.2f} / solve "
+                "{solve:.2f}), init {init_s:.2f} s, halfway {advect_s:.2f} s".format(
+                    levels_s=rec["levels_s"], init_s=rec["init_s"], advect_s=rec["advect_s"],
+                    **rec["stage_s"]))
+    phase("6f", f"the halo form {halo_form} launched {rec['halo_form_launches']} times")
+    phase("6f", f"final alignment error {rec['final_alignment_error']:.6f}; xla draw "
+                f"{rec['xla_final_alignment_error']:.6f}; under deterministic algorithms halo "
+                f"{deterministic['halo']:.6f}, xla {deterministic['xla']:.6f}: relative "
+                f"difference {rel:.3e} (<= {HALO_ALIGNMENT_REL})")
+    worst = max(m["flow_res"] for m in levels)
+    if worst > 10 * cfg.flow_refine_tol:
+        raise RuntimeError(f"halo: a level's flow_res {worst:.3e} is above 10 x "
+                           f"flow_refine_tol")
+    if not rel <= HALO_ALIGNMENT_REL:
+        raise RuntimeError(f"halo: final alignment error {deterministic['halo']} differs "
+                           f"from the xla run's {deterministic['xla']} by more than "
+                           f"{HALO_ALIGNMENT_REL} relative")
+    return prob, rec
+
+
+def record_halo_form(spmv_report, rec: dict) -> None:
+    """Phase 7's times of the halo form beside the square flow form's, into
+    phase 6f's record (main_path_halo.json)."""
+    def row(op):
+        return next(r for r in spmv_report if r["name"] == "spmv_ell"
+                    and r["operator"] == op and r["dtype"] == "float32")
+
+    halo_row, flow = row("halo rows"), row("flow")
+    rec["halo_form_timing"] = {k: halo_row[k] for k in (
+        "ms", "ms_cold", "ms_local_gather", "issue_ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "max_abs_err", "plan")}
+    rec["flow_form_ms"] = flow["ms"]
+    with open(os.path.join(WORK, "main_path_halo.json"), "w") as f:
+        json.dump(rec, f, indent=1)
+    phase(7, f"the halo form {halo_row['ms'] * 1e3:.2f} us warm against its "
+             f"{halo_row['bound_ms'] * 1e3:.2f} us bound; the square flow form "
+             f"{flow['ms'] * 1e3:.2f} us")
+
+
+_NCCL_WORKER = r"""
+import json, os, sys
+sys.path.insert(0, %(repo)r)
+import numpy as np
+import torch
+from meshopticalflow_tpu_torch.kernels import spmv
+from meshopticalflow_tpu_torch.parallel import distributed as D, halo as H
+from meshopticalflow_tpu_torch.utils.testing import halo_test_system
+
+assert D.maybe_init_distributed(%(device)r, timeout_s=120)
+g = D.global_device_group(%(device)r)
+s = halo_test_system(6)
+b = torch.as_tensor(s["b"], dtype=torch.float32)
+x_in = torch.as_tensor(np.random.default_rng(6).normal(size=len(s["b"])), dtype=torch.float32)
+torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def solve(grp):
+    h = H.build_halo_ell(s["cols"], s["vals"].astype(np.float32), grp)
+    hc = H.build_halo_coarse(h, s["p0_idx"], s["p0_wt"], s["c1_cols"], s["c1_vals"])
+    spmv.reset_counts()
+    y = h.matvec(x_in.to(g.device)).cpu()
+    x, st = H.halo_mg_pcg(h, hc, b.to(g.device), tol=1e-6, max_iters=400, chunk=8)
+    x = x.cpu()
+    res = float(np.linalg.norm(s["a"] @ x.double().numpy() - b.double().numpy())
+                / np.linalg.norm(b.double().numpy()))
+    return x, y, dict(iters=st.iterations, rel=st.rel_residual, residual=res, halo=h.halo,
+                      block=h.block, bytes=h.bytes_exchanged,
+                      launches=spmv.counts()["by_form"], x_sum=float(x.double().sum()))
+
+
+out = {}
+x, y, out["split"] = solve(g)
+if g.rank == 0:
+    x1, y1, out["solo"] = solve(D.DeviceGroup(None, 0, 1, g.device))
+    out["x_diff"] = float((x - x1).abs().max() / x1.abs().max())
+    out["y_diff"] = float((y - y1).abs().max() / y1.abs().max())
+print("NCCL_RESULT " + json.dumps(dict(rank=g.rank, world=g.world_size,
+                                       device=str(g.device), **out)), flush=True)
+torch.distributed.destroy_process_group()
+"""
+
+
+def nccl_exchange(world: int, device: str = DEVICE) -> dict:
+    """The halo solve over NCCL in ``world`` processes, one per GPU: a halo
+    product and halo_mg_pcg (float32) on a 49,152-unknown sphere system,
+    against rank 0's world-size-1 solve of the same system. Every process
+    started here is stopped before it returns. (``device`` "cpu" runs the
+    same code over gloo, a rehearsal.)"""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, MESHFLOW_COORDINATOR=f"127.0.0.1:{port}",
+                   MESHFLOW_NUM_PROCESSES=str(world), MESHFLOW_PROCESS_ID=str(rank),
+                   LOCAL_RANK=str(rank))
+        code = _NCCL_WORKER % {"repo": REPO, "device": device}
+        procs.append(subprocess.Popen([sys.executable, "-c", code],
+                                      env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    results = []
+    try:
+        for rank, p in enumerate(procs):
+            out, err = p.communicate(timeout=300)
+            if p.returncode != 0:
+                raise RuntimeError(f"NCCL rank {rank} failed:\n{err[-3000:]}")
+            results.append(json.loads(next(line for line in out.splitlines()
+                                           if line.startswith("NCCL_RESULT "))[12:]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    solo = results[0]["solo"]
+    for r in results:
+        sp_ = r["split"]
+        if not (sp_["rel"] < 1e-5 and sp_["bytes"] > 0
+                and abs(sp_["x_sum"] - results[0]["split"]["x_sum"]) == 0):
+            raise RuntimeError(f"NCCL rank {r['rank']}: {sp_}")
+    if not (results[0]["x_diff"] <= 1e-5 and results[0]["y_diff"] <= KERNEL_TOL["float32"]
+            and results[0]["split"]["iters"] == solo["iters"]):
+        raise RuntimeError(f"NCCL: the split solve differs from the solo one: {results[0]}")
+    return dict(world=world, ranks=results)
+
+
+# the viewer's problem: the cube at this edge length (49,152 triangles), two levels
+VIEW_FRACTION = 0.018
+
+
+def viewer_path(spmv, paths, size, scratch: str):
+    """Phase 6g: the viewer's live terminal path (viz/live.py, numpy only)
+    on the card, with scripted key tokens and its frames into a file:
+    ``view_flow`` steps two levels of the cube at --eLength 0.018 with the
+    2048^2 inputs ('a a v', then 'o' where matplotlib imports, 'q'), and a
+    ``FlowProblem.run`` of the same two levels must compute the same tfield,
+    bit for bit (both under deterministic algorithms); then ``view_spectrum``
+    pages phase 6d's eigenvector fields ('n n b', 'o', 'q')."""
+    import importlib.util
+    import io
+
+    import torch
+    from meshopticalflow_tpu_torch.apps.optical_flow import build_parser, config_from_args
+    from meshopticalflow_tpu_torch.flow.pipeline import FlowProblem
+    from meshopticalflow_tpu_torch.geometry.subdivide import subdivide_mesh
+    from meshopticalflow_tpu_torch.io.binio import read_vector
+    from meshopticalflow_tpu_torch.io.ply import read_triangle_mesh
+    from meshopticalflow_tpu_torch.viz import view_flow, view_spectrum
+
+    cube = os.path.join(GOLD, "cube.ply")
+    cfg = dataclasses.replace(config_from_args(build_parser().parse_args(
+        ["--mesh", cube, "--in", *paths, "--out", "unused.png", "--iterations", "2",
+         "--eLength", str(VIEW_FRACTION)])), artifact_cache=False)
+    mpl = importlib.util.find_spec("matplotlib") is not None
+    export = "o " if mpl else ""
+    out_dir = os.path.join(WORK, "viewer")
+    os.makedirs(out_dir, exist_ok=True)
+
+    @contextlib.contextmanager
+    def scripted(keys: str, frames_path: str):
+        saved = sys.stdin, os.environ.get("MESHFLOW_LIVE")
+        os.environ["MESHFLOW_LIVE"] = "1"
+        sys.stdin = io.StringIO(keys)
+        try:
+            with open(frames_path, "w") as f, contextlib.redirect_stdout(f):
+                yield
+        finally:
+            sys.stdin = saved[0]
+            if saved[1] is None:
+                del os.environ["MESHFLOW_LIVE"]
+            else:
+                os.environ["MESHFLOW_LIVE"] = saved[1]
+
+    torch.cuda.synchronize()
+    spmv.reset_counts()
+    flow_frames = os.path.join(out_dir, "view_flow_frames.txt")
+    t0 = time.time()
+    with deterministic_algorithms():
+        prob = FlowProblem.from_texture_inputs(cube, tuple(paths), cfg, device=DEVICE)
+        with scripted("a a v " + export + "q\n", flow_frames):
+            stepped = view_flow(prob, out_dir=out_dir, interactive=False)
+        torch.cuda.synchronize()
+        view_s = time.time() - t0
+        counts = spmv.counts()
+        ref = FlowProblem.from_texture_inputs(cube, tuple(paths), cfg, device=DEVICE)
+        res = ref.run()
+    same = bool(torch.equal(prob.tfield, ref.tfield))
+    max_diff = float((prob.tfield - ref.tfield).abs().max())
+    with open(flow_frames) as f:
+        flow_text = f.read()
+
+    data = read_triangle_mesh(cube)
+    diag = float(np.linalg.norm(data.vertices.max(0) - data.vertices.min(0)))
+    tris, verts = subdivide_mesh(data.faces, data.vertices, SPECTRUM_FRACTION * diag)
+    dumps = sorted(glob.glob(os.path.join(scratch, "spectrum", "eigenvector-*")))
+    fields = np.stack([read_vector(p, width=2).reshape(len(tris), 2) for p in dumps])
+    spec_frames = os.path.join(out_dir, "view_spectrum_frames.txt")
+    t0 = time.time()
+    with scripted("n n b " + export + "q\n", spec_frames):
+        pages = view_spectrum(verts, tris, fields, out_dir=os.path.join(out_dir, "spectrum"),
+                              interactive=False)
+    spec_s = time.time() - t0
+    with open(spec_frames) as f:
+        spec_text = f.read()
+    exports = sorted(glob.glob(os.path.join(out_dir, "live_export_*"))
+                     + glob.glob(os.path.join(out_dir, "spectrum", "live_export_*")))
+    rec = dict(triangles=prob.mesh.n_triangles, levels_stepped=stepped,
+               flow_frames=flow_text.count("\x1b[H"), spectrum_frames=spec_text.count("\x1b[H"),
+               spectrum_pages=pages, fields=int(fields.shape[0]), matplotlib=mpl,
+               png_exports=[os.path.relpath(p, REPO) for p in exports],
+               tfield_equal_to_run=same, tfield_max_abs_diff=max_diff,
+               alignment_error=[m["alignment_error"] for m in res.metrics],
+               view_flow_s=view_s, view_spectrum_s=spec_s, launches=counts)
+    with open(os.path.join(WORK, "main_path_viewer.json"), "w") as f:
+        json.dump(rec, f, indent=1)
+    phase("6g", f"view_flow (live, scripted 'a a v {export}q') on {rec['triangles']} "
+                f"triangles: {stepped} levels stepped, {rec['flow_frames']} frames written in "
+                f"{view_s:.2f} s (init included); tfield equal bit for bit to run() of the same "
+                f"levels: {same} (max |d| {max_diff:.3e})")
+    phase("6g", f"view_spectrum (live, 'n n b {export}q') on phase 6d's {rec['fields']} "
+                f"fields: {rec['spectrum_frames']} frames in {spec_s:.2f} s; matplotlib "
+                f"imports: {mpl}; PNG exports: {rec['png_exports']}")
+    phase("6g", f"launches: spmv_ell {counts['spmv_ell']}, spmv_ell_multi "
+                f"{counts['spmv_ell_multi']}, plain on CUDA {counts['plain_on_cuda']}")
+    _check_draw("viewer", counts, rec["alignment_error"] + [view_s, spec_s])
+    if stepped != 2 or rec["flow_frames"] < 4 or rec["spectrum_frames"] < 4:
+        raise RuntimeError(f"viewer: {stepped} levels, {rec['flow_frames']} / "
+                           f"{rec['spectrum_frames']} frames")
+    if not same:
+        raise RuntimeError(f"viewer: the stepped tfield differs from run()'s by {max_diff}")
+    if mpl and len(exports) != 2:
+        raise RuntimeError(f"viewer: expected two PNG exports, found {exports}")
+    return rec
 
 
 def warm_init_path(spmv, root, paths, size):
@@ -1764,6 +2125,8 @@ def main() -> int:
     t_start = time.time()
     card = card_line()
     phase(1, f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if sys.argv[1:] == ["--nccl"]:
+        return nccl_only(card)
     # the artifact cache, the baked frames, the tracker's and the spectrum's
     # outputs (hundreds of MB) stay out of the records directory
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=REPO) as scratch:
@@ -1815,6 +2178,20 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
     torch.cuda.empty_cache()
     draws["xla"], draws["mf"] = mf_path(spmv, root, paths, size, mg_rec)
     torch.cuda.empty_cache()
+    hprob, draws["halo"] = halo_path(spmv, root, paths, size, draws["xla"], draws["mf"])
+    operators.append(halo_operator(_halo_layout(hprob)))
+    del hprob
+    if torch.cuda.device_count() >= 2:
+        draws["halo"]["nccl"] = nccl_exchange(2)
+        phase("6f", "the halo solve over NCCL in 2 processes, one per GPU: "
+                    + json.dumps({r["rank"]: r["split"]["iters"] for r in
+                                  draws["halo"]["nccl"]["ranks"]}) + " iterations a rank, "
+                    "equal to the world-size-1 solve")
+    else:
+        phase("6f", "the multi-rank NCCL exchange was not run: this machine shows "
+                    f"{torch.cuda.device_count()} GPU (the gloo tests on the CPU hold the "
+                    "multi-rank logic)")
+    torch.cuda.empty_cache()
     draws["warm_init"] = warm_init_path(spmv, root, paths, size)
     torch.cuda.empty_cache()
 
@@ -1822,6 +2199,7 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
     torch.cuda.empty_cache()
     draws["spectrum"], spectrum_ops = spectrum_path(spmv, scratch)
     operators += spectrum_operators(*spectrum_ops)
+    draws["viewer"] = viewer_path(spmv, paths, size, scratch)
 
     rates = dict(hbm_copy_tb_s=copy_rate_tb_s(2 ** 30), l2_copy_tb_s=copy_rate_tb_s(2 ** 24))
     phase(7, f"measured copy rates: HBM {rates['hbm_copy_tb_s']:.3f} TB/s (1 GB), "
@@ -1829,6 +2207,7 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
              f"{HBM_TB_S} TB/s")
     spmv_report = check_spmv(spmv, operators, rates["l2_copy_tb_s"], draws)
     del operators, spectrum_ops
+    record_halo_form(spmv_report, draws["halo"])
     split = iteration_split(prob)
     del prob
     torch.cuda.empty_cache()
@@ -1847,8 +2226,8 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], ms_cold=r["ms_cold"], issue_ms=r["issue_ms"],
             **{f"launches_{tag}_path": draws[tag]["launches"][name]
-               for tag in ("jacobi", "conformal", "connection", "xla", "mf", "warm_init",
-                           "tracking", "spectrum")}))
+               for tag in ("jacobi", "conformal", "connection", "xla", "mf", "halo",
+                           "warm_init", "tracking", "spectrum", "viewer")}))
     for fn_name, rec in probe_report.items():
         kernels.append(dict(
             name=fn_name, route="cuda", source="meshopticalflow_tpu_torch/csrc/probes.cu",
@@ -1864,6 +2243,8 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
                                                                       "connection")},
                        mf=draws["mf"]["nd"], warm_init={k: draws["warm_init"][k] for k in (
                            "init_s", "levels_s", "shared", "same_tfield", "artifact_mb")},
+                       halo={k: draws["halo"][k] for k in (
+                           "layout", "halo_form_launches", "alignment_rel_to_xla", "nccl")},
                        seconds=elapsed), f, indent=1)
     phase(8, f"all phases passed in {elapsed:.1f} s")
     print(card)
@@ -1871,6 +2252,35 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def nccl_only(card: str) -> int:
+    """``python3 chip_smoke.py --nccl`` on a machine with two or more GPUs:
+    only the halo solve over NCCL, at 2 ranks and at every GPU of the host."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from meshopticalflow_tpu_torch.kernels import spmv
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        raise SystemExit(f"chip_smoke --nccl: needs two or more GPUs, this machine shows {count}")
+    os.makedirs(WORK, exist_ok=True)
+    spmv.LIBRARY.load()
+    out = {}
+    for world in sorted({2, count}):
+        out[world] = nccl_exchange(world)
+        for r in out[world]["ranks"]:
+            phase("6f", f"NCCL world {world} rank {r['rank']} on {r['device']}: halo "
+                        f"{r['split']['halo']}, block {r['split']['block']}, "
+                        f"{r['split']['bytes']} B sent a product, "
+                        f"{r['split']['iters']} iterations, residual "
+                        f"{r['split']['residual']:.3e}")
+    with open(os.path.join(WORK, "nccl.json"), "w") as f:
+        json.dump(dict(card=card, runs=out), f, indent=1)
+    print(card)
+    print(json.dumps({"nccl": {w: len(o["ranks"]) for w, o in out.items()}, "ok": True}))
     return 0
 
 

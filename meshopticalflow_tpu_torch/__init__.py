@@ -7,7 +7,8 @@ reference: host preprocessing is a jax-free copy of its numpy code, device
 work is PyTorch, and the sparse matvecs of the solvers run through
 hand-written CUDA kernels (``csrc/spmv_ell.cu``, bound in ``kernels/spmv.py``).
 
-This slice runs the Whitney basis with Jacobi-PCG solves (no multigrid).
+Multi-device runs take one process per GPU under torch.distributed
+(``parallel/``); the viewer is ``viz/``.
 """
 
 __version__ = "0.1.0"

@@ -10,14 +10,24 @@ Usage:
 The flags are the reference CLI's: the basis (--vfMode 0 Whitney, 1
 Conformal, 2 Connection; --cMode; --divFree), the flow solver
 (--flowBackend auto/pallas: the Hopper-kernel multigrid cycle, xla: the
-three-level cycle, mf: the multifrontal direct solve; the Conformal and
-Connection bases take the two-level cycle), the host direct-solve oracle
-(--hostSolve), per-level dumps (--debug, into the working directory) and
---serve, a worker that reads one JSON job per stdin line and prints one JSON
-result line per job; jobs over one mesh share its init state through the
-artifact and device caches ($MESHFLOW_CACHE, utils/devcache.py). --out is required: the
-reference's viewer is not ported. ``--device cuda`` (the default) raises
-when no GPU is available; it never falls back to the CPU.
+three-level cycle, mf: the multifrontal direct solve, halo: the
+halo-exchange cycle split over the processes of a multi-process run; the
+Conformal and Connection bases take the two-level cycle), the host
+direct-solve oracle (--hostSolve), per-level dumps (--debug, into the
+working directory) and --serve, a worker that reads one JSON job per stdin
+line and prints one JSON result line per job; jobs over one mesh share its
+init state through the artifact and device caches ($MESHFLOW_CACHE,
+utils/devcache.py). Without --out the viewer runs (viz/surface.py::view_flow:
+level frames into the working directory, or the live terminal viewer on a
+tty or with MESHFLOW_LIVE=1), as the reference's does. ``--device cuda``
+(the default) raises when no GPU is available; it never falls back to the
+CPU.
+
+Multi-process runs (one process per GPU) take the environment contract of
+parallel/distributed.py (MESHFLOW_COORDINATOR, MESHFLOW_NUM_PROCESSES,
+MESHFLOW_PROCESS_ID, or torchrun's MASTER_ADDR, MASTER_PORT, WORLD_SIZE,
+RANK, LOCAL_RANK): every rank runs the same problem, the halo flow solve and
+the final texel marches split over the ranks; rank 0 writes the output.
 """
 
 from __future__ import annotations
@@ -90,10 +100,12 @@ def add_alignment_flags(p: argparse.ArgumentParser) -> None:
                    help="device dtype")
     p.add_argument("--hostSolve", action="store_true",
                    help="solve each level's flow system on the host (scipy direct solve)")
-    p.add_argument("--flowBackend", default="auto", choices=("auto", "pallas", "xla", "mf"),
+    p.add_argument("--flowBackend", default="auto",
+                   choices=("auto", "pallas", "xla", "mf", "halo"),
                    help="flow solver: auto/pallas = the Hopper-kernel multigrid cycle "
                         "with the exact banded coarse solve, xla = the three-level cycle, "
-                        "mf = the multifrontal direct solve")
+                        "mf = the multifrontal direct solve, halo = the halo-exchange "
+                        "cycle over the processes of a multi-process run")
 
 
 def config_from_args(args) -> FlowConfig:
@@ -121,20 +133,32 @@ def config_from_args(args) -> FlowConfig:
     )
 
 
-def _run_one(args, config: FlowConfig):
+def _run_one(args, config: FlowConfig, device_group=None):
     """Load the inputs, run every level and write the output; shared by the
-    one-shot path and the --serve loop."""
+    one-shot path and the --serve loop. Without ``args.out`` the viewer
+    steps the levels instead (reference: OpticalFlow.cpp:1072-1092) and
+    nothing is returned."""
     from meshopticalflow_tpu_torch.flow.pipeline import FlowProblem
 
     if args.mesh:
         problem = FlowProblem.from_texture_inputs(args.mesh, tuple(args.inputs),
-                                                  config, device=args.device)
+                                                  config, device=args.device,
+                                                  device_group=device_group)
     else:
         problem = FlowProblem.from_vertex_inputs(args.inputs[0], args.inputs[1],
-                                                 config, device=args.device)
+                                                 config, device=args.device,
+                                                 device_group=device_group)
     if args.verbose:
         print(f"Vertices / Triangles: {problem.mesh.n_vertices} / "
               f"{problem.mesh.n_triangles}")
+    if not args.out:
+        if device_group is not None and device_group.world_size > 1:
+            raise ValueError("the viewer runs in one process: pass --out in a "
+                             "multi-process run")
+        from meshopticalflow_tpu_torch.viz import view_flow
+
+        view_flow(problem, out_dir=".")
+        return None
     result = problem.run(verbose=args.verbose, debug_dir="." if args.debug else None)
     problem.write_output(args.out)
     return result
@@ -157,7 +181,7 @@ def _job_argv(job: dict) -> list:
     return argv
 
 
-def serve(base_args, stdin=None, stdout=None) -> int:
+def serve(base_args, stdin=None, stdout=None, device_group=None) -> int:
     """The worker loop (the reference's apps/optical_flow.py:134-193): one
     JSON job per line, {"in": [A, B], "out": PATH, "mesh": PATH?, ...flag
     overrides}, over the flags this process started with; one JSON result
@@ -194,7 +218,7 @@ def serve(base_args, stdin=None, stdout=None) -> int:
             if not args.inputs or not args.out:
                 raise ValueError("job needs \"in\" and \"out\"")
             t0 = time.time()
-            result = _run_one(args, config_from_args(args))
+            result = _run_one(args, config_from_args(args), device_group)
             rec = {"out": args.out, "seconds": round(time.time() - t0, 2)}
             if result.metrics:
                 rec["alignment_error"] = float(result.metrics[-1]["alignment_error"])
@@ -205,16 +229,21 @@ def serve(base_args, stdin=None, stdout=None) -> int:
 
 
 def main(argv=None) -> int:
+    from meshopticalflow_tpu_torch.parallel.distributed import (global_device_group,
+                                                                maybe_init_distributed)
+
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.serve:
-        return serve(args)
-    if not args.inputs:
+    if not args.serve and not args.inputs:
         parser.error("--in is required (unless --serve)")
-    if not args.out:
-        parser.error("--out is required: the viewer is not ported")
-    result = _run_one(args, config_from_args(args))
-    if args.error:
+    # Multi-process runs: a no-op unless a coordinator is configured; then
+    # the problem runs as one rank of the group of every process.
+    group = global_device_group(args.device) if maybe_init_distributed(args.device) \
+        else None
+    if args.serve:
+        return serve(args, device_group=group)
+    result = _run_one(args, config_from_args(args), group)
+    if args.error and result is not None and (group is None or group.rank == 0):
         print(json.dumps({"alignment_error": result.metrics[-1]["alignment_error"]}))
     return 0
 

@@ -9,8 +9,10 @@ smoothness operator against the vector-field mass) and writes
 ``eigenvector-%03d.bin``, byte-compatible with the reference
 (Spectrum.cpp:191-195). On CUDA the eigensolver runs block Lanczos on the
 banded shift-invert solve; on the CPU, the Jacobi-PCG recurrence.
-``--device cuda`` (the default) raises when no GPU is available. ``--view``
-is refused: the reference's viewer is not ported.
+``--device cuda`` (the default) raises when no GPU is available. ``--view
+DIR`` also renders the eigenvector fields through the viewer
+(viz/surface.py::view_spectrum): a pager on a display, the live terminal
+viewer on a tty or with MESHFLOW_LIVE=1, PNG frames into DIR otherwise.
 """
 
 from __future__ import annotations
@@ -47,7 +49,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="quadrature flags for --femDual (1 angular, 2 square-length)")
     p.add_argument("--femLinearFit", action="store_true",
                    help="use the linear-fit Monte-Carlo stiffness (FEM.inl:1840)")
-    p.add_argument("--view", default="", help="refused: the viewer is not ported")
+    p.add_argument("--view", default="",
+                   help="render the eigenvector fields into this directory (interactive "
+                        "viewer with orbit/pan/zoom on a tty; PNG frames otherwise)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (cuda, cuda:N or cpu)")
     return p
@@ -58,8 +62,6 @@ def main(argv=None, stats: dict | None = None) -> int:
     record."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.view:
-        parser.error("--view: the viewer is not ported; write the fields with --outPrefix")
 
     import torch
 
@@ -117,6 +119,11 @@ def main(argv=None, stats: dict | None = None) -> int:
                      field.reshape(-1, 2))
     if args.verbose:
         print(json.dumps({"eigenvalues": [float(x) for x in result.eigenvalues]}))
+    if args.view:
+        from meshopticalflow_tpu_torch.viz import view_spectrum
+
+        view_spectrum(verts, tris, np.asarray(result.triangle_fields),
+                      np.asarray(result.eigenvalues), out_dir=args.view)
     return 0
 
 

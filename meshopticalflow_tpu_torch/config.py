@@ -161,14 +161,18 @@ def require_supported(config: FlowConfig) -> None:
     multifrontal direct solve of solvers/multifrontal.py at every level, with
     the three-level cycle of solvers/mg3.py for the smoothing solves and as
     the flow solve's fallback. ``use_host_cholesky`` solves each level on the
-    host with scipy. Not ported: the sharded halo cycle ("halo").
+    host with scipy. ``flow_backend="halo"`` takes the halo-exchange
+    two-level flow solve of parallel/halo.py under a DeviceGroup
+    (``FlowProblem(device_group=...)``) and the three-level cycle for the
+    smoothing; without a group it runs the three-level cycle for both, as
+    the reference does without a device mesh.
     ``artifact_cache`` serves the per-mesh init work from the disk artifact
     cache (utils/artifacts.py, $MESHFLOW_CACHE) and the device state from
     the process device cache (utils/devcache.py), as in the reference
     package; it changes no result.
     """
     refused = []
-    if config.flow_backend not in ("auto", "pallas", "xla", "mf"):
+    if config.flow_backend not in ("auto", "pallas", "xla", "mf", "halo"):
         refused.append(f"flow_backend={config.flow_backend!r}")
     if config.dtype not in ("float32", "float64"):
         refused.append(f"dtype={config.dtype!r}")

@@ -10,7 +10,10 @@ port's tensors from it:
   * ``load_state``: coeffs, tfield and the texel table of a reference
     ``FlowProblem`` into a port ``FlowProblem`` of the same problem;
   * ``load_checkpoint``: a reference ``save_checkpoint`` ``.npz`` into a port
-    ``FlowProblem``.
+    ``FlowProblem``;
+  * ``halo_from_reference``: a reference ``HaloEll`` layout (its arrays as
+    numpy) as this rank's port ``HaloEll``, so the port's halo solvers can
+    run on the reference's layout.
 
 Index tables become int64 tensors, ELL column tables stay int32 (the SpMV
 kernels' operand type), and values take the port problem's dtype.
@@ -77,3 +80,36 @@ def load_checkpoint(problem: FlowProblem, path: str):
     """Load a reference ``save_checkpoint`` file into ``problem`` (the two
     packages share the format); returns (level, s_weight, v_weight)."""
     return problem.load_checkpoint(path)
+
+
+def halo_from_reference(perm, inv_perm, cols_local, vals_p, diag_p, n: int, block: int,
+                        halo: int, group=None):
+    """The port's ``HaloEll`` of ``group``'s rank from the reference's layout
+    arrays (``perm``, ``inv_perm``: (n,); ``cols_local``, ``vals_p``:
+    (block * world, W); ``diag_p``: (block * world,)), built for as many
+    devices as the group has ranks. The local columns are clipped to the
+    extended vector, as the reference clips them in its product
+    (parallel/halo.py:94). ``group`` defaults to world size 1 on the CPU."""
+    from meshopticalflow_tpu_torch.kernels.spmv import check_columns
+    from meshopticalflow_tpu_torch.parallel.distributed import DeviceGroup
+    from meshopticalflow_tpu_torch.parallel.halo import HaloEll
+
+    group = group or DeviceGroup(None, 0, 1, torch.device("cpu"))
+    cols_local = np.asarray(cols_local)
+    if cols_local.shape[0] != block * group.world_size:
+        raise ValueError(f"layout of {cols_local.shape[0]} rows is not {block} rows "
+                         f"for each of {group.world_size} ranks")
+    own = slice(group.rank * block, (group.rank + 1) * block)
+    cols_own = np.ascontiguousarray(np.clip(cols_local[own], 0, block + 2 * halo - 1),
+                                    np.int32)
+    check_columns(cols_own, block + 2 * halo)
+    vals = np.array(vals_p)
+    dtype = torch.float64 if vals.dtype == np.float64 else torch.float32
+    dev = group.device
+    return HaloEll(group=group,
+                   perm=torch.as_tensor(np.array(perm, np.int64)).to(dev),
+                   inv_perm=torch.as_tensor(np.array(inv_perm, np.int64)).to(dev),
+                   cols_local=torch.as_tensor(cols_own).to(dev),
+                   vals_p=torch.as_tensor(np.ascontiguousarray(vals[own])).to(dev, dtype),
+                   diag_p=torch.as_tensor(np.array(diag_p)[own].copy()).to(dev, dtype),
+                   n=int(n), block=int(block), halo=int(halo))

@@ -213,16 +213,25 @@ def device_block(level, name: str, like: torch.Tensor) -> torch.Tensor:
 
 def _make_mg_solver(basis, coarse, patch, d_blocks, scale, vf_smooth_weight, sys_vals,
                     diag, kind, mg_cheb_k, mg_nu, mg_fine_cheb, mg_coarse_exact,
-                    mg_c1_bf16=False):
+                    mg_c1_bf16=False, halo_group=None):
     """The per-level flow solver on the hierarchy of ``kind`` (the
     reference's models/base.py:366-450; flow/pipeline.py:solver_kinds picks
     it): "mg3", the Hopper-kernel cycle of solvers/mg.py (the exact banded
     c1 cycle, or, without the exact c1 or after its factorization broke down
     at every shift, the 3-level cycle with the dense patch coarsest); "xla",
     the three-level cycle of solvers/mg3.py; "twolevel", the two-level cycle
-    of solvers/twolevel.py (no patch level read)."""
+    of solvers/twolevel.py (no patch level read). With ``halo_group``
+    (``flow_backend="halo"`` under a DeviceGroup) it is the halo-exchange
+    two-level cycle of parallel/halo.py instead, whatever ``kind``: the
+    fine rows split over the group, the exact banded c1 solve replicated."""
     c_vals, c_diag = coarse_system_vals(coarse.coarse_dev, d_blocks, scale,
                                         vf_smooth_weight)
+    if halo_group is not None:
+        from meshopticalflow_tpu_torch.parallel.halo import flow_halo_solver
+
+        return flow_halo_solver(halo_group, basis.ell_cols, sys_vals, diag,
+                                coarse.coarse_dev.ell_cols, c_vals, coarse.p0_idx,
+                                coarse.p0_wt, nu=mg_nu)
     if kind == "mg3":
         from meshopticalflow_tpu_torch.solvers.mg import MG3Solver
 
@@ -293,6 +302,8 @@ def update_optical_flow(
     solve_info: Optional[dict] = None,
     nd=None,           # solvers.multifrontal.NDContext: the direct per-level
                        # solve (flow_backend="mf"); MG is its fallback
+    halo_group=None,   # parallel.distributed.DeviceGroup: the halo-exchange
+                       # two-level solve (flow_backend="halo" under a group)
 ):
     """One Gauss-Newton flow step (VectorField::UpdateOpticalFlow,
     VectorField.h:46-104): system assembly, the solve, step finalize.
@@ -306,7 +317,8 @@ def update_optical_flow(
     accuracy miss), the level is refactored under a 1e-6 relative diagonal
     shift, and if that misses too, handed to the multigrid solver
     (models/base.py:608-626). With the hierarchy (``coarse``) alone the
-    solve is a multigrid PCG (``_make_mg_solver``) inside the adaptive
+    solve is a multigrid PCG (``_make_mg_solver``; the halo-exchange cycle
+    of parallel/halo.py with a ``halo_group``) inside the adaptive
     refinement loop, with the inner call the reference makes
     (models/base.py:606-611); without either, Jacobi-PCG inside refinement
     when ``refine``. Both fill ``solve_info`` (when given) with the solver's
@@ -332,7 +344,7 @@ def update_optical_flow(
         def build(exact):
             return _make_mg_solver(basis, coarse, patch, d_blocks, scale,
                                    vf_smooth_weight, sys_vals, diag, mg_kind, mg_cheb_k,
-                                   mg_nu, mg_fine_cheb, exact, mg_c1_bf16)
+                                   mg_nu, mg_fine_cheb, exact, mg_c1_bf16, halo_group)
 
         def run(solver):
             if not refine:

@@ -4,6 +4,12 @@ Port of meshopticalflow_tpu/solvers/cg.py. All rhs columns iterate together
 with per-column alpha/beta; iteration stops when every column's residual
 passes the relative tolerance (or at ``max_iters``).
 
+``pcg_multi`` and ``pcg`` take an optional ``group``
+(parallel/distributed.py's ``DeviceGroup``, the counterpart of the
+reference's ``axis_name``): the vectors are then each rank's row block, and
+every column dot is summed over the ranks with ``dist.all_reduce``. Without
+a group nothing changes.
+
 ``ell_pcg`` is the solver of the main path. It runs ``chunk`` iterations
 between host convergence checks, as the reference does, so iteration counts
 come in multiples of ``chunk`` and match the reference's exactly. The
@@ -37,8 +43,9 @@ def _inv_diag(diag: torch.Tensor) -> torch.Tensor:
     return _safe_div(torch.ones_like(diag), diag)
 
 
-def _col_dots(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("nc,nc->c", u, v)
+def _col_dots(u: torch.Tensor, v: torch.Tensor, group=None) -> torch.Tensor:
+    d = torch.einsum("nc,nc->c", u, v)
+    return d if group is None else group.all_reduce(d)
 
 
 def pcg_multi(
@@ -48,31 +55,34 @@ def pcg_multi(
     x0: Optional[torch.Tensor] = None,
     tol: float = 1e-7,
     max_iters: int = 1000,
+    group=None,
 ):
     """Solve A x = b for SPD A with C right-hand sides simultaneously.
-    Tests convergence after every iteration (one host sync each)."""
+    Tests convergence after every iteration (one host sync each). Under a
+    ``group`` b, diag, x0 and the result are this rank's rows, and
+    ``matvec`` maps this rank's rows to this rank's rows."""
     inv_diag = _inv_diag(diag)[:, None]
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(x) if x0 is not None else b
     z = inv_diag * r
     p = z
-    rz = _col_dots(r, z)
-    b_norm2 = _col_dots(b, b)
+    rz = _col_dots(r, z, group)
+    b_norm2 = _col_dots(b, b, group)
     b_norm2 = torch.where(b_norm2 > 0, b_norm2, torch.ones_like(b_norm2))
     tol2 = torch.as_tensor(tol, dtype=b.dtype, device=b.device) ** 2 * b_norm2
     it = 0
-    while it < max_iters and bool(torch.any(_col_dots(r, r) > tol2)):
+    while it < max_iters and bool(torch.any(_col_dots(r, r, group) > tol2)):
         ap = matvec(p)
-        alpha = _safe_div(rz, _col_dots(p, ap))
+        alpha = _safe_div(rz, _col_dots(p, ap, group))
         x = x + alpha[None, :] * p
         r = r - alpha[None, :] * ap
         z = inv_diag * r
-        rz_new = _col_dots(r, z)
+        rz_new = _col_dots(r, z, group)
         beta = _safe_div(rz_new, rz)
         p = z + beta[None, :] * p
         rz = rz_new
         it += 1
-    rel = float(torch.sqrt(torch.max(_col_dots(r, r) / b_norm2)))
+    rel = float(torch.sqrt(torch.max(_col_dots(r, r, group) / b_norm2)))
     return x, CGStats(it, rel)
 
 
@@ -83,11 +93,12 @@ def pcg(
     x0: Optional[torch.Tensor] = None,
     tol: float = 1e-7,
     max_iters: int = 1000,
+    group=None,
 ):
     """Single-rhs wrapper around pcg_multi."""
     mv = lambda v: matvec(v[:, 0])[:, None]
     x0c = None if x0 is None else x0[:, None]
-    x, stats = pcg_multi(mv, b[:, None], diag, x0c, tol, max_iters)
+    x, stats = pcg_multi(mv, b[:, None], diag, x0c, tol, max_iters, group)
     return x[:, 0], stats
 
 

@@ -2,7 +2,8 @@
 
 Jax-free: ``octa_sphere`` is a copy of meshopticalflow_tpu/utils/testing.py's
 (drift guard: tests/test_torch_host.py::HOST_COPIES); ``arpack_spectrum`` is
-the spectrum's reference on the card, where no JAX package is installed.
+the spectrum's reference on the card, where no JAX package is installed;
+``halo_test_system`` is the halo solvers' system on the card.
 """
 
 from __future__ import annotations
@@ -57,3 +58,32 @@ def arpack_spectrum(host, mesh, k: int):
     lams = spla.eigsh(sp.csc_matrix(host.smooth), k=k, M=m, sigma=1e-8, which="LM", v0=v0,
                       return_eigenvectors=False)
     return np.sort(lams)
+
+
+def halo_test_system(subdiv: int):
+    """A shifted Whitney smoothness system on the sphere (float64 numpy: its
+    ELL ``cols``, ``vals`` and scipy matrix ``a``), a right-hand side ``b``
+    from a seed, and an aggregation coarse space for the halo multigrid
+    solve: fine row i -> coarse row i // 4, weight 1 (``p0_idx``,
+    ``p0_wt``), with the Galerkin coarse operator as padded ELL (``c1_cols``,
+    ``c1_vals``)."""
+    import scipy.sparse as sp
+
+    from meshopticalflow_tpu_torch.config import FlowConfig
+    from meshopticalflow_tpu_torch.geometry.mesh import build_mesh
+    from meshopticalflow_tpu_torch.models.base import build_basis
+    from meshopticalflow_tpu_torch.ops.ell import ell_from_scipy
+
+    tris, verts = octa_sphere(subdiv)
+    _, basis = build_basis(build_mesh(tris, vertices=verts), FlowConfig(dtype="float64"), "cpu")
+    cols = basis.ell_cols.numpy()
+    vals = basis.s_vals.numpy().copy()
+    n, w = cols.shape
+    vals[np.arange(n), basis.diag_slot.numpy()] += 1e-2
+    a = sp.csr_matrix((vals.ravel(), (np.repeat(np.arange(n), w), cols.ravel())), shape=(n, n))
+    p0_idx = (np.arange(n) // 4)[:, None]
+    p0_wt = np.ones((n, 1))
+    p = sp.csr_matrix((p0_wt[:, 0], (np.arange(n), p0_idx[:, 0])), shape=(n, p0_idx.max() + 1))
+    c1 = ell_from_scipy((p.T @ a @ p).tocsr())
+    return dict(cols=cols, vals=vals, a=a, p0_idx=p0_idx, p0_wt=p0_wt, c1_cols=c1.cols,
+                c1_vals=c1.vals, b=np.random.default_rng(5).normal(size=n))

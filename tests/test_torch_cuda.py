@@ -493,3 +493,52 @@ def test_cuda_flat_gather_misaligned_index(n):
     o = probes.flat_gather(x, idx)
     torch.cuda.synchronize()
     assert torch.equal(o, probes.flat_gather_plain(x, idx))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rank,world", [(0, 1), (0, 4), (2, 4), (3, 4)])
+def test_cuda_halo_form_matches_plain(dtype, rank, world):
+    """The halo product's rectangular form: a rank's (block, W) rows against
+    x_ext of block + 2 * halo values (parallel/halo.py; the layout needs no
+    exchange to build)."""
+    _require_card()
+    from meshopticalflow_tpu_torch.parallel.distributed import DeviceGroup
+    from meshopticalflow_tpu_torch.parallel.halo import build_halo_ell
+    from meshopticalflow_tpu_torch.utils.testing import halo_test_system
+
+    s = halo_test_system(4)
+    h = build_halo_ell(s["cols"], torch.as_tensor(s["vals"]).to(dtype),
+                       DeviceGroup(None, rank, world, torch.device("cuda")))
+    gen = torch.Generator(device="cuda").manual_seed(rank)
+    x_ext = torch.randn(h.block + 2 * h.halo, generator=gen, device="cuda", dtype=dtype)
+    assert spmv.form_of("spmv_ell", h.cols_local, h.vals_p, x_ext.shape[0]).split("/")[2] \
+        == "rectangular"
+    _check_against_plain(h.cols_local, h.vals_p, x_ext, 0)
+
+
+@pytest.mark.gpu
+def test_cuda_halo_mg_pcg_matches_cpu():
+    """halo_mg_pcg at world size 1 on the card (the hand SpMV kernel, the
+    float32 banded coarse solve) against the same float32 solve on the CPU:
+    solutions within 1e-5 relative."""
+    _require_card()
+    from meshopticalflow_tpu_torch.parallel.distributed import DeviceGroup
+    from meshopticalflow_tpu_torch.parallel.halo import (build_halo_coarse, build_halo_ell,
+                                                         halo_mg_pcg)
+    from meshopticalflow_tpu_torch.utils.testing import halo_test_system
+
+    s = halo_test_system(4)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        g = DeviceGroup(None, 0, 1, torch.device(dev))
+        h = build_halo_ell(s["cols"], s["vals"].astype(np.float32), g)
+        hc = build_halo_coarse(h, s["p0_idx"], s["p0_wt"], s["c1_cols"], s["c1_vals"])
+        before = spmv.spmv_ell.launches
+        x, st = halo_mg_pcg(h, hc, torch.as_tensor(s["b"]).to(dev, torch.float32), tol=1e-6,
+                            max_iters=400, chunk=8)
+        out[dev] = (x.cpu().numpy().astype(np.float64), st, spmv.spmv_ell.launches - before)
+    (xc, sc, lc), (xg, sg, lg) = out["cpu"], out["cuda"]
+    assert lc == 0 and lg > 0
+    assert sc.rel_residual < 1e-5 and sg.rel_residual < 1e-5
+    assert np.abs(xg - xc).max() / np.abs(xc).max() <= 1e-5

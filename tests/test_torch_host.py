@@ -180,7 +180,7 @@ def test_config_matches_reference_fields():
     assert a == b
 
 
-UNPORTED = (dict(flow_backend="halo"), dict(dtype="bfloat16"))
+UNPORTED = (dict(dtype="bfloat16"),)
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -191,9 +191,8 @@ UNPORTED = (dict(flow_backend="halo"), dict(dtype="bfloat16"))
 ])
 def test_config_refuses_unported_paths(kwargs):
     """With multigrid on (as the CLI runs) and off, every basis and solver
-    the port has (the multifrontal "mf" backend included) is accepted; the
-    sharded ("halo") flow backend and dtypes other than float32/float64 are
-    refused."""
+    the port has (the multifrontal "mf" and the sharded "halo" backends
+    included) is accepted; dtypes other than float32/float64 are refused."""
     for mg_on in (True, False):
         cfg = t_config.FlowConfig(use_multigrid=mg_on, **kwargs)
         if kwargs in UNPORTED:
@@ -471,6 +470,8 @@ HOST_COPIES = {
     "solvers.multifrontal": (("_pad8", "dof_positions", "nested_dissection",
                               "front_structure", "_DepthTables", "NDPack",
                               "build_nd_pack"), "90ceae72548bf34e"),
+    "viz.surface": (None, "a08a7d159408b9e8"),
+    "viz.live": (None, "14717d7c37488034"),
 }
 # Sources that are not Python modules, copied byte for byte: path under
 # both packages -> the pinned hash of the reference's text.

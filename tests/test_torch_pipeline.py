@@ -231,13 +231,13 @@ def test_cli_cuda_without_gpu_raises(tmp_path, monkeypatch):
 
 
 def test_port_refuses_multigrid_config():
-    """The flow backend the port lacks (the sharded halo cycle) is refused
-    at construction."""
+    """A flow backend neither package has is refused at construction; the
+    sharded halo cycle, ported, is not."""
     tris, verts, s0, s1 = sphere_signal_pair(2)
+    mesh, sig = t_build_mesh(tris, vertices=verts), np.stack([s0, s1])
     with pytest.raises(NotImplementedError):
-        t_pipeline.FlowProblem(FlowConfig(flow_backend="halo"),
-                               t_build_mesh(tris, vertices=verts), np.stack([s0, s1]),
-                               device="cpu")
+        t_pipeline.FlowProblem(FlowConfig(flow_backend="tiles"), mesh, sig, device="cpu")
+    t_pipeline.FlowProblem(FlowConfig(flow_backend="halo"), mesh, sig, device="cpu")
 
 
 def _mg_problems(dtype, edge, levels, paths):

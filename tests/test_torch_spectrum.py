@@ -21,6 +21,7 @@ packages. Checks:
 """
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -217,10 +218,17 @@ def test_spectrum_cli_matches_reference(metric_ply, tmp_path, capsys, flags):
 
 
 def test_spectrum_cli_refuses_cuda_without_gpu_and_view(metric_ply, tmp_path, monkeypatch):
+    """--device cuda without a GPU raises; --view, now ported, renders the
+    fields (headless: one frame each)."""
     from meshopticalflow_tpu_torch.apps.spectrum import main as t_main
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         t_main(["--mesh", metric_ply, "--outPrefix", str(tmp_path)])
-    with pytest.raises(SystemExit):
-        t_main(["--mesh", metric_ply, "--view", str(tmp_path), "--device", "cpu"])
+    monkeypatch.delenv("DISPLAY", raising=False)
+    monkeypatch.setenv("MESHFLOW_LIVE", "0")
+    view = tmp_path / "view"
+    assert t_main(["--mesh", metric_ply, "--view", str(view), "--eigenVectors", "2",
+                   "--outPrefix", str(tmp_path / "bins"), "--device", "cpu"]) == 0
+    assert sorted(os.listdir(view)) == ["camera.json", "eigenfield_001.png",
+                                        "eigenfield_002.png"]
