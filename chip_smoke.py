@@ -64,11 +64,21 @@ any failure raises, so the run exits non-zero and prints no final ok line.
      rank's rows against x_ext = [left halo, own rows, right halo]), the
      bytes a product exchanges; then its levels again under deterministic
      algorithms, the final alignment error within HALO_ALIGNMENT_REL of
-     phase 6e's xla run under them. Where the machine shows two or more
-     GPUs, the halo solve also runs in 2 processes over NCCL against the
-     world-size-1 solve (``python3 chip_smoke.py --nccl`` runs that alone, at
-     2 ranks and at every GPU of the host); on one GPU the run says that it
-     did not;
+     phase 6e's xla run under them. Then the xla draw under the same
+     group of one, where nothing is split (every row helper is the
+     identity), its deterministic final alignment error held to phase
+     6e's. Where the machine shows two or more GPUs, the halo solve also
+     runs in 2 processes over NCCL against the world-size-1 solve; on one
+     GPU the run says that it did not. ``python3 chip_smoke.py --nccl``
+     runs, at 2 ranks and at every GPU of the host, that halo solve and
+     the row-split xla draw at the multigrid cell's size (one process per
+     GPU, each holding the ``pick`` row blocks of the smoothing
+     operators, signals and flow basis operator) against rank 0's one-rank
+     draw (drawn once, at 2 ranks): per rank its rows, peak memory, stage seconds, flow_iters, the
+     bytes a product gathers and its launches per SpMV form; its
+     deterministic final alignment error within SPLIT_ALIGNMENT_REL of one
+     rank's, flow_iters within SPLIT_ITERS_SLACK, tfield equal on every
+     rank;
   6c. the per-mesh init cache: the multigrid cell built twice in one
      process with the artifact cache on (a scratch $MESHFLOW_CACHE), at
      WARM_LEVELS levels under torch's deterministic algorithms: both
@@ -99,7 +109,9 @@ any failure raises, so the run exits non-zero and prints no final ok line.
      operator, the rectangular transfers P0 and P0^T of both hierarchies;
      the conformal and connection flow operators and their f32 transfers;
      the spectrum's S + sigma M at 1, 4 and 8 columns; the halo product's
-     rows, whose times also go into main_path_halo.json),
+     rows, whose times also go into main_path_halo.json; rank 0's rows of
+     the f32 flow and smoothing operators at 2 and 4 ranks against every
+     row of x, the row-split draw's products),
      with its launch plan, warm and cold-L2 times, the warm time with the
      scattered gather of x taken out (every slot of a row reading one x
      element), the byte bound (stored non-zeros only), cuSPARSE's time on
@@ -117,7 +129,8 @@ print and record the SpMV launches per form. The draws of phases 5, 6, 6b,
 earlier records. The second-to-last line is a JSON record of the nine
 kernels; the last line is {"ok": true, "device": {...}}. The full records
 go to chiprun_out/chip_smoke/ (kernels.json, main_path_{jacobi,multigrid,
-conformal,connection,xla,mf,halo,warm_init,tracking,spectrum,viewer}.json,
+conformal,connection,xla,mf,halo,xla_group,warm_init,tracking,spectrum,
+viewer}.json, nccl.json and ranks/ under --nccl,
 the viewer's frames and exports under viewer/); the artifact
 cache ($MESHFLOW_CACHE), the baked frames and the CLIs' outputs to a
 scratch directory in the checkout that the run deletes.
@@ -159,6 +172,11 @@ MF_ALIGNMENT_REL = 1e-5
 # alignment error within 1e-6 of the solo run's and the JAX package's
 # (tests/test_torch_parallel.py, the production-run cases)
 HALO_ALIGNMENT_REL = 1e-5
+# the row-split xla run's (--nccl) final alignment error against one rank's,
+# both under deterministic algorithms: the same bound, as the split solves
+# refine to flow_refine_tol; its flow_iters within one PCG chunk (8) a level
+SPLIT_ALIGNMENT_REL = 1e-5
+SPLIT_ITERS_SLACK = 8
 WARM_LEVELS = 3                # depth of the two warm-init constructions' runs
 DEVICE = "cuda"
 
@@ -1345,6 +1363,56 @@ def record_halo_form(spmv_report, rec: dict) -> None:
              f"{flow['ms'] * 1e3:.2f} us")
 
 
+def _deterministic_final(prob) -> float:
+    """The problem's levels again from the initial state under deterministic
+    algorithms; the final level's alignment error."""
+    import torch
+
+    with deterministic_algorithms():
+        prob.coeffs = torch.zeros_like(prob.coeffs)
+        prob.tfield = torch.zeros_like(prob.tfield)
+        prob._warm_x = None
+        return prob.run().metrics[-1]["alignment_error"]
+
+
+def xla_group_path(spmv, root, paths, size, mf_rec):
+    """Phase 6f: the multigrid cell's size, CLI defaults otherwise, with
+    --flowBackend xla under the DeviceGroup of world size 1 that the halo
+    draw runs under: every row helper is the identity there (nothing is
+    split), so this is phase 6e's xla draw through the group's code path.
+    Then its levels again under deterministic algorithms: the final
+    alignment error is held to phase 6e's xla run under them within
+    HALO_ALIGNMENT_REL. Returns the record."""
+    from meshopticalflow_tpu_torch.apps.optical_flow import build_parser, config_from_args
+    from meshopticalflow_tpu_torch.parallel.distributed import global_device_group
+
+    cfg = config_from_args(build_parser().parse_args(
+        ["--mesh", root, "--in", *paths, "--out", "unused.png", "--flowBackend", "xla"]))
+    group = global_device_group(DEVICE)
+    prob, rec = drive(spmv, root, paths, size, cfg, "xla_group", "6f", device_group=group)
+    _check_draw("xla_group", rec["launches"], [rec["init_s"], rec["levels_s"]])
+    arrays = prob.arrays
+    if (prob.config.flow_backend, prob.hier.flow_kind, prob.hier.smooth_kind) != (
+            "xla", "xla", "xla") or arrays.vrows.split or arrays.frows.split:
+        raise RuntimeError("xla_group: not the unsplit three-level cycles at world size 1")
+    final = _deterministic_final(prob)
+    ref = mf_rec["deterministic_final_alignment_error"]["xla"]
+    rel = abs(final - ref) / abs(ref)
+    rec.update(world_size=group.world_size, deterministic_final_alignment_error=final,
+               xla_deterministic_final_alignment_error=ref, alignment_rel_to_xla=rel,
+               flow_iters=[m["flow_iters"] for m in rec["levels"]])
+    with open(os.path.join(WORK, "main_path_xla_group.json"), "w") as f:
+        json.dump(rec, f, indent=1)
+    phase("6f", f"xla under the world-size-1 group: levels {rec['levels_s']:.2f} s, "
+                f"flow_iters per level " + ", ".join(f"{i:.0f}" for i in rec["flow_iters"])
+                + f"; under deterministic algorithms {final:.6f}, phase 6e's xla {ref:.6f}: "
+                f"relative difference {rel:.3e} (<= {HALO_ALIGNMENT_REL})")
+    if not rel <= HALO_ALIGNMENT_REL:
+        raise RuntimeError(f"xla_group: final alignment error {final} differs from the xla "
+                           f"run's {ref} by more than {HALO_ALIGNMENT_REL} relative")
+    return rec
+
+
 _NCCL_WORKER = r"""
 import json, os, sys
 sys.path.insert(0, %(repo)r)
@@ -1388,40 +1456,70 @@ torch.distributed.destroy_process_group()
 """
 
 
-def nccl_exchange(world: int, device: str = DEVICE) -> dict:
-    """The halo solve over NCCL in ``world`` processes, one per GPU: a halo
-    product and halo_mg_pcg (float32) on a 49,152-unknown sphere system,
-    against rank 0's world-size-1 solve of the same system. Every process
-    started here is stopped before it returns. (``device`` "cpu" runs the
-    same code over gloo, a rehearsal.)"""
+def run_ranks(code: str, world: int, prefix: str, timeout: float) -> list:
+    """``python -c code`` in ``world`` processes of one process group (rank
+    r on GPU r, a free local port); every rank's JSON line after
+    ``prefix``, in rank order. The first rank to fail, or the deadline,
+    stops every process: a rank left waiting in a collective for one that
+    died is killed, not waited for. Each rank's output goes to a file under
+    the records directory."""
     import socket
 
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
     port = s.getsockname()[1]
     s.close()
-    procs = []
-    for rank in range(world):
-        env = dict(os.environ, MESHFLOW_COORDINATOR=f"127.0.0.1:{port}",
-                   MESHFLOW_NUM_PROCESSES=str(world), MESHFLOW_PROCESS_ID=str(rank),
-                   LOCAL_RANK=str(rank))
-        code = _NCCL_WORKER % {"repo": REPO, "device": device}
-        procs.append(subprocess.Popen([sys.executable, "-c", code],
-                                      env=env, stdout=subprocess.PIPE,
-                                      stderr=subprocess.PIPE, text=True))
-    results = []
+    logs = os.path.join(WORK, "ranks")
+    os.makedirs(logs, exist_ok=True)
+    procs, files = [], []
     try:
+        for rank in range(world):
+            env = dict(os.environ, MESHFLOW_COORDINATOR=f"127.0.0.1:{port}",
+                       MESHFLOW_NUM_PROCESSES=str(world), MESHFLOW_PROCESS_ID=str(rank),
+                       LOCAL_RANK=str(rank))
+            out = open(os.path.join(logs, f"{prefix.strip().lower()}_{world}_{rank}.out"), "w+")
+            err = open(os.path.join(logs, f"{prefix.strip().lower()}_{world}_{rank}.err"), "w+")
+            files.append((out, err))
+            procs.append(subprocess.Popen([sys.executable, "-c", code], env=env, stdout=out,
+                                          stderr=err, text=True))
+        deadline = time.time() + timeout
+        while any(p.poll() is None for p in procs):
+            for rank, p in enumerate(procs):
+                if p.poll() not in (None, 0):
+                    files[rank][1].seek(0)
+                    raise RuntimeError(f"rank {rank} of {world} failed:\n"
+                                       f"{files[rank][1].read()[-3000:]}")
+            if time.time() > deadline:
+                raise RuntimeError(f"{world} ranks still running after {timeout} s")
+            time.sleep(0.5)
+        results = []
         for rank, p in enumerate(procs):
-            out, err = p.communicate(timeout=300)
+            out, err = files[rank]
+            out.seek(0)
+            err.seek(0)
             if p.returncode != 0:
-                raise RuntimeError(f"NCCL rank {rank} failed:\n{err[-3000:]}")
-            results.append(json.loads(next(line for line in out.splitlines()
-                                           if line.startswith("NCCL_RESULT "))[12:]))
+                raise RuntimeError(f"rank {rank} of {world} failed:\n{err.read()[-3000:]}")
+            results.append(json.loads(next(line for line in out.read().splitlines()
+                                           if line.startswith(prefix))[len(prefix):]))
+        return results
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        for out, err in files:
+            out.close()
+            err.close()
+
+
+def nccl_exchange(world: int, device: str = DEVICE) -> dict:
+    """The halo solve over NCCL in ``world`` processes, one per GPU: a halo
+    product and halo_mg_pcg (float32) on a 49,152-unknown sphere system,
+    against rank 0's world-size-1 solve of the same system. Every process
+    started here is stopped before it returns. (``device`` "cpu" runs the
+    same code over gloo, a rehearsal.)"""
+    results = run_ranks(_NCCL_WORKER % {"repo": REPO, "device": device}, world,
+                        "NCCL_RESULT ", timeout=300)
     solo = results[0]["solo"]
     for r in results:
         sp_ = r["split"]
@@ -1431,6 +1529,140 @@ def nccl_exchange(world: int, device: str = DEVICE) -> dict:
     if not (results[0]["x_diff"] <= 1e-5 and results[0]["y_diff"] <= KERNEL_TOL["float32"]
             and results[0]["split"]["iters"] == solo["iters"]):
         raise RuntimeError(f"NCCL: the split solve differs from the solo one: {results[0]}")
+    return dict(world=world, ranks=results)
+
+
+_NCCL_XLA_WORKER = r"""
+import dataclasses, hashlib, json, sys, time
+sys.path.insert(0, %(repo)r)
+import torch
+from meshopticalflow_tpu_torch.apps.optical_flow import build_parser, config_from_args
+from meshopticalflow_tpu_torch.flow.pipeline import FlowProblem
+from meshopticalflow_tpu_torch.kernels import spmv
+from meshopticalflow_tpu_torch.parallel import distributed as D
+
+root, paths = %(root)r, %(paths)r
+assert D.maybe_init_distributed(%(device)r, timeout_s=180)
+g = D.global_device_group(%(device)r)
+cuda = g.device.type == "cuda"
+torch.backends.cuda.matmul.allow_tf32 = False
+cfg = dataclasses.replace(config_from_args(build_parser().parse_args(
+    ["--mesh", root, "--in", *paths, "--out", "unused.png", "--flowBackend", "xla",
+     *%(flags)r])), artifact_cache=False)
+
+
+def sync():
+    if cuda:
+        torch.cuda.synchronize(g.device)
+
+
+def draw(group):
+    # one draw through the user's entry points, then its levels again from
+    # the initial state under deterministic algorithms
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(g.device)
+    spmv.reset_counts()
+    sync()
+    t0 = time.time()
+    prob = FlowProblem.from_texture_inputs(root, tuple(paths), cfg, device=str(g.device),
+                                           device_group=group)
+    sync()
+    init_s, t0 = time.time() - t0, time.time()
+    res = prob.run()
+    sync()
+    levels_s, t0 = time.time() - t0, time.time()
+    blend = prob.halfway_texture()
+    sync()
+    halfway_s = time.time() - t0
+    counts = spmv.counts()
+    a = prob.arrays
+    ops, basis = a.smooth_ops, a.basis
+    elem = basis.s_vals.element_size()
+    m = res.metrics
+    rec = dict(
+        init_s=init_s, levels_s=levels_s, halfway_s=halfway_s,
+        stage_s={k: sum(v[k + "_seconds"] for v in m) for k in ("smooth", "trace", "solve")},
+        flow_iters=[v["flow_iters"] for v in m], smooth_iters=[v["smooth_iters"] for v in m],
+        flow_res=[v["flow_res"] for v in m], alignment_error=[v["alignment_error"] for v in m],
+        peak_mem_gb=torch.cuda.max_memory_allocated(g.device) / 1e9 if cuda else None,
+        rows={"smooth_ops.cols": ops.cols.shape[0], "smooth_ops.mass_vals":
+              ops.mass_vals.shape[0], "smooth_ops.stiff_vals": ops.stiff_vals.shape[0],
+              "smooth_ops.diag_slot": ops.diag_slot.shape[0], "smooth_ops.lumped":
+              ops.lumped.shape[0], "signals": a.signals.shape[0], "basis.ell_cols":
+              basis.ell_cols.shape[0], "basis.s_vals": basis.s_vals.shape[0],
+              "basis.diag_slot": basis.diag_slot.shape[0]},
+        vertices=a.vrows.n, unknowns=a.frows.n,
+        gather_bytes_flow=(a.frows.n - a.frows.n_local) * elem,
+        gather_bytes_smooth=(a.vrows.n - a.vrows.n_local) * elem * a.signals.shape[1],
+        launches=counts["by_form"], spmv_ell=counts["spmv_ell"],
+        spmv_ell_multi=counts["spmv_ell_multi"], plain_on_cuda=counts["plain_on_cuda"],
+        blend=list(blend.shape), trace_exhausted=sum(v["trace_exhausted"] for v in m))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        prob.coeffs = torch.zeros_like(prob.coeffs)
+        prob.tfield = torch.zeros_like(prob.tfield)
+        prob._warm_x = None
+        det = prob.run().metrics
+    finally:
+        torch.use_deterministic_algorithms(False)
+    rec.update(det_alignment_error=det[-1]["alignment_error"],
+               det_alignment_errors=[v["alignment_error"] for v in det],
+               det_flow_iters=[v["flow_iters"] for v in det],
+               tfield_sha1=hashlib.sha1(prob.tfield.cpu().numpy().tobytes()).hexdigest())
+    return rec
+
+
+out = dict(rank=g.rank, world=g.world_size, device=str(g.device), split=draw(g))
+if g.rank == 0 and %(solo)r:
+    out["solo"] = draw(D.DeviceGroup(None, 0, 1, g.device))
+print("NCCL_XLA_RESULT " + json.dumps(out), flush=True)
+torch.distributed.destroy_process_group()
+"""
+
+
+def nccl_xla(world: int, root: str, paths, flags=(), device: str = DEVICE,
+             solo: dict = None) -> dict:
+    """The row-split xla draw (--flowBackend xla under a DeviceGroup) in
+    ``world`` processes, one per GPU, on ``root`` and ``paths`` with CLI
+    defaults but ``flags``: each rank holds the ``pick`` row blocks of the
+    smoothing operators, signals and flow basis operator, and solves on
+    them. Rank 0 then draws the same problem alone (world size 1), unless
+    ``solo`` holds that draw's record from an earlier call. Each
+    draw's levels run again under deterministic algorithms: every rank's
+    final alignment error must be within SPLIT_ALIGNMENT_REL of the one-rank
+    draw's, its flow_iters within SPLIT_ITERS_SLACK a level, its tfield equal
+    on every rank bit for bit, and the fine flow products must have left the
+    square form; each rank's record lists the checks it failed under
+    "failed", for the caller to raise on after recording. Every process
+    started here is stopped before it returns. (``device`` "cpu" runs the
+    same code over gloo, a rehearsal, where no kernel launches.)"""
+    code = _NCCL_XLA_WORKER % {"repo": REPO, "device": device, "root": root,
+                               "paths": list(paths), "flags": list(flags),
+                               "solo": solo is None}
+    results = run_ranks(code, world, "NCCL_XLA_RESULT ", timeout=420)
+    solo = solo or results[0]["solo"]
+    ref = solo["det_alignment_error"]
+    square = "spmv_ell/f32/square/slab"
+    for r in results:
+        sp_ = r["split"]
+        r["alignment_rel_to_one_rank"] = abs(sp_["det_alignment_error"] - ref) / abs(ref)
+        r["flow_iters_diff"] = [a - b for a, b in zip(sp_["det_flow_iters"],
+                                                      solo["det_flow_iters"])]
+        expect = {k: n // world if n % world == 0 else n for k, n in solo["rows"].items()}
+        checks = dict(
+            alignment=r["alignment_rel_to_one_rank"] <= SPLIT_ALIGNMENT_REL,
+            iters=len(r["flow_iters_diff"]) == len(solo["det_flow_iters"])
+            and max(abs(d) for d in r["flow_iters_diff"]) <= SPLIT_ITERS_SLACK,
+            rows=sp_["rows"] == expect and sp_["unknowns"] % world == 0,
+            tfield=sp_["tfield_sha1"] == results[0]["split"]["tfield_sha1"],
+            kernels=device == "cpu" or (sp_["spmv_ell"] > 0 and sp_["spmv_ell_multi"] > 0
+                                        and sp_["plain_on_cuda"] == 0),
+            form=device == "cpu"
+            or sp_["launches"].get(square, 0) < solo["launches"].get(square, 0),
+            finite=all(math.isfinite(float(v)) for v in sp_["alignment_error"]
+                       + [sp_["init_s"], sp_["levels_s"], sp_["halfway_s"]]))
+        r["failed"] = [k for k, v in checks.items() if not v]
     return dict(world=world, ranks=results)
 
 
@@ -1971,6 +2203,25 @@ def mg_operators(prob):
     ]
 
 
+def split_operators(operators):
+    """Phase 7's row-split forms: rank 0's rows of the float32 flow and
+    smoothing operators of ``operators`` at 2 and 4 ranks, wherever the
+    rows divide (196,610 smoothing rows do not divide 4), against every row
+    of x, as a product of the split xla draw (``--nccl``) runs them."""
+    import torch
+
+    out = []
+    for name, op, cols, vals, x in operators:
+        if op not in ("flow", "smoothing") or vals.dtype != torch.float32:
+            continue
+        for world in (2, 4):
+            if cols.shape[0] % world == 0:
+                rows = cols.shape[0] // world
+                out.append((name, f"{op} rows 1/{world}", cols[:rows].clone(),
+                            vals[:rows].clone(), x))
+    return out
+
+
 def twolevel_operators(prob, tag: str, f64: bool, vertex: bool):
     """The forms a two-level draw adds: its flow operator (f32, and f64
     when ``f64``: the refinement residuals), its f32 transfers P0 / P0^T,
@@ -2169,6 +2420,7 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
     root = write_mg_root()
     prob, mg_rec = multigrid_path(spmv, root, paths, size)
     operators = mg_operators(prob)
+    operators += split_operators(operators)
     draws = {"multigrid": mg_rec, "jacobi": jacobi}
     for vf_mode, tag in ((1, "conformal"), (2, "connection")):
         tprob, draws[tag] = twolevel_path(spmv, root, paths, size, vf_mode, tag)
@@ -2181,6 +2433,8 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
     hprob, draws["halo"] = halo_path(spmv, root, paths, size, draws["xla"], draws["mf"])
     operators.append(halo_operator(_halo_layout(hprob)))
     del hprob
+    torch.cuda.empty_cache()
+    draws["xla_group"] = xla_group_path(spmv, root, paths, size, draws["mf"])
     if torch.cuda.device_count() >= 2:
         draws["halo"]["nccl"] = nccl_exchange(2)
         phase("6f", "the halo solve over NCCL in 2 processes, one per GPU: "
@@ -2227,7 +2481,7 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
             library_ms=r["library_ms"], ms_cold=r["ms_cold"], issue_ms=r["issue_ms"],
             **{f"launches_{tag}_path": draws[tag]["launches"][name]
                for tag in ("jacobi", "conformal", "connection", "xla", "mf", "halo",
-                           "warm_init", "tracking", "spectrum", "viewer")}))
+                           "xla_group", "warm_init", "tracking", "spectrum", "viewer")}))
     for fn_name, rec in probe_report.items():
         kernels.append(dict(
             name=fn_name, route="cuda", source="meshopticalflow_tpu_torch/csrc/probes.cu",
@@ -2257,7 +2511,9 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
 
 def nccl_only(card: str) -> int:
     """``python3 chip_smoke.py --nccl`` on a machine with two or more GPUs:
-    only the halo solve over NCCL, at 2 ranks and at every GPU of the host."""
+    the halo solve over NCCL, then the row-split xla draw at full width
+    (the multigrid cell: 393,216 triangles, 2048^2) against one rank's
+    draw, each at 2 ranks and at every GPU of the host."""
     import torch
 
     sys.path.insert(0, REPO)
@@ -2268,7 +2524,7 @@ def nccl_only(card: str) -> int:
         raise SystemExit(f"chip_smoke --nccl: needs two or more GPUs, this machine shows {count}")
     os.makedirs(WORK, exist_ok=True)
     spmv.LIBRARY.load()
-    out = {}
+    out, split = {}, {}
     for world in sorted({2, count}):
         out[world] = nccl_exchange(world)
         for r in out[world]["ranks"]:
@@ -2277,10 +2533,42 @@ def nccl_only(card: str) -> int:
                         f"{r['split']['bytes']} B sent a product, "
                         f"{r['split']['iters']} iterations, residual "
                         f"{r['split']['residual']:.3e}")
+    paths, size = upsampled_inputs()
+    root = write_mg_root()
+    for world in sorted({2, count}):
+        # one one-rank draw, at the first size, is the reference of both
+        first = split[min(split)]["ranks"][0]["solo"] if split else None
+        split[world] = nccl_xla(world, root, paths, solo=first)
+        for r in split[world]["ranks"]:
+            for tag in ("split", "solo"):
+                if tag not in r:
+                    continue
+                d = r[tag]
+                who = (f"NCCL xla world {world} rank {r['rank']} on {r['device']}"
+                       if tag == "split" else f"one-rank xla draw on {r['device']}")
+                phase("6f", f"{who}: rows {json.dumps(d['rows'])}; peak "
+                            f"{d['peak_mem_gb']:.3f} GB; init {d['init_s']:.2f} s, levels "
+                            f"{d['levels_s']:.2f} s (smooth {d['stage_s']['smooth']:.2f} / trace "
+                            f"{d['stage_s']['trace']:.2f} / solve {d['stage_s']['solve']:.2f}), "
+                            f"halfway {d['halfway_s']:.2f} s; flow_iters per level "
+                            + ", ".join(f"{i:.0f}" for i in d["flow_iters"])
+                            + f"; a fine flow product gathers {d['gather_bytes_flow']} B, a "
+                            f"smoothing product {d['gather_bytes_smooth']} B; launches "
+                            + json.dumps(d["launches"]))
+            phase("6f", f"NCCL xla world {world} rank {r['rank']}: under deterministic "
+                        f"algorithms final alignment error {r['split']['det_alignment_error']:.6f}"
+                        f", one rank {r['alignment_rel_to_one_rank']:.3e} relative away "
+                        f"(<= {SPLIT_ALIGNMENT_REL}); flow_iters per level minus one rank's "
+                        f"{r['flow_iters_diff']}; failed checks {r['failed']}")
     with open(os.path.join(WORK, "nccl.json"), "w") as f:
-        json.dump(dict(card=card, runs=out), f, indent=1)
+        json.dump(dict(card=card, runs=out, split_xla=split), f, indent=1)
+    failed = {(w, r["rank"]): r["failed"] for w, o in split.items() for r in o["ranks"]
+              if r["failed"]}
+    if failed:
+        raise RuntimeError(f"NCCL xla: checks failed (world, rank): {failed}")
     print(card)
-    print(json.dumps({"nccl": {w: len(o["ranks"]) for w, o in out.items()}, "ok": True}))
+    print(json.dumps({"nccl": {w: len(o["ranks"]) for w, o in out.items()},
+                      "split_xla": {w: len(o["ranks"]) for w, o in split.items()}, "ok": True}))
     return 0
 
 

@@ -140,6 +140,9 @@ def _run_one(args, config: FlowConfig, device_group=None):
     nothing is returned."""
     from meshopticalflow_tpu_torch.flow.pipeline import FlowProblem
 
+    if not args.out and device_group is not None and device_group.world_size > 1:
+        raise ValueError("the viewer runs in one process: pass --out in a "
+                         "multi-process run")
     if args.mesh:
         problem = FlowProblem.from_texture_inputs(args.mesh, tuple(args.inputs),
                                                   config, device=args.device,
@@ -152,9 +155,6 @@ def _run_one(args, config: FlowConfig, device_group=None):
         print(f"Vertices / Triangles: {problem.mesh.n_vertices} / "
               f"{problem.mesh.n_triangles}")
     if not args.out:
-        if device_group is not None and device_group.world_size > 1:
-            raise ValueError("the viewer runs in one process: pass --out in a "
-                             "multi-process run")
         from meshopticalflow_tpu_torch.viz import view_flow
 
         view_flow(problem, out_dir=".")

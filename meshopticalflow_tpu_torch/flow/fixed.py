@@ -7,11 +7,12 @@ the unit that parallel/sharding.py::sharded_level_step splits over a
 ``DeviceGroup``. The smoothing and flow PCGs multiply through the SpMV
 kernels (kernels/spmv.py: ``spmv_ell_multi`` and ``spmv_ell``).
 
-Under a ``group`` the operators of ``arrays`` whose leading axis was split
-(``parallel/sharding.py::place_level_step``) hold this rank's rows: the PCG
-vectors are then this rank's rows too, each product gathers its x from every
-rank first (``DeviceGroup.all_gather_rows``), and every dot product is summed
-over the ranks. Everything else, and the result, is replicated.
+When ``arrays`` were placed on a group (``parallel/sharding.py::
+place_problem``), the tensors whose leading axis was split hold this rank's
+rows (``arrays.vrows``, ``arrays.frows``): the PCG vectors are then this
+rank's rows too, each product gathers its x from every rank first
+(``DeviceGroup.all_gather_rows``), and every dot product is summed over the
+ranks. Everything else, and the result, is replicated.
 """
 
 from __future__ import annotations
@@ -26,29 +27,6 @@ from meshopticalflow_tpu_torch.models.base import prolong, reduce_rhs
 from meshopticalflow_tpu_torch.ops.dataterm import data_term_blocks
 from meshopticalflow_tpu_torch.ops.ell import ell_matvec
 from meshopticalflow_tpu_torch.solvers.cg import pcg, pcg_multi
-
-
-class _Rows:
-    """An operator's rows on this rank: ``sl`` of the full ``n``, and the
-    group that holds the others (None when the operator is replicated)."""
-
-    def __init__(self, n_local: int, n: int, group):
-        split = group is not None and n_local != n
-        self.group = group if split else None
-        start = group.rank * n_local if split else 0
-        self.sl = slice(start, start + n_local)
-
-    def full(self, v: torch.Tensor) -> torch.Tensor:
-        """A vector of this rank's rows, gathered to all rows."""
-        return v if self.group is None else self.group.all_gather_rows(v)
-
-    def dot(self, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        """sum(u * v) over all rows, for u, v of this rank's rows."""
-        d = torch.sum(u * v)
-        return d if self.group is None else self.group.all_reduce(d)
-
-    def matvec(self, cols, vals):
-        return lambda v: ell_matvec(cols, vals, self.full(v))
 
 
 def _resample_pair(arrays, tfield, smoothed, min_step, max_steps):
@@ -75,7 +53,6 @@ def flow_level_fixed(
     flow_iters: int = 128,
     min_step: float = 1e-2,
     max_steps: int = 512,
-    group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One UpdateFlow level (OpticalFlow.cpp:423-474) as a pure function.
 
@@ -85,16 +62,14 @@ def flow_level_fixed(
     c = signals.shape[1] // 2
     s_weight = torch.as_tensor(s_weight, dtype=dtype, device=signals.device)
     v_weight = torch.as_tensor(v_weight, dtype=dtype, device=signals.device)
-    vrows = _Rows(ops.cols.shape[0], signals.shape[0], group)
-    frows = _Rows(basis.ell_cols.shape[0], basis.n_coeffs, group)
+    vrows, frows = arrays.vrows, arrays.frows
 
     # Signal smoothing (M + wK)^-1 M s.
     sys_vals = ops.mass_vals + s_weight * ops.stiff_vals
-    b = ell_matvec(ops.cols, ops.mass_vals, signals)
+    b = ell_matvec(ops.cols, ops.mass_vals, vrows.full(signals))
     diag = torch.gather(sys_vals, 1, ops.diag_slot[:, None])[:, 0]
     smoothed, _ = pcg_multi(vrows.matvec(ops.cols, sys_vals), b, diag,
-                            x0=signals[vrows.sl], tol=1e-30, max_iters=smooth_iters,
-                            group=vrows.group)
+                            x0=signals, tol=1e-30, max_iters=smooth_iters, rows=vrows)
     smoothed = vrows.full(smoothed)
 
     # Advect +-1/2 and build the data term.
@@ -110,12 +85,12 @@ def flow_level_fixed(
         0, basis.dt_slots, vals.reshape(-1))
     frob = torch.sqrt(torch.sum(dt_flat * dt_flat))
     scale = torch.where(frob > 0, 1.0 / frob, torch.zeros_like(frob))
-    dt_vals = (dt_flat * scale).reshape(n, w)[frows.sl]
+    dt_vals = frows.local((dt_flat * scale).reshape(n, w))
     fsys = dt_vals + v_weight * basis.s_vals
-    rhs = (reduce_rhs(basis, rhs_t) * scale)[frows.sl]
+    rhs = frows.local(reduce_rhs(basis, rhs_t) * scale)
     fdiag = torch.gather(fsys, 1, basis.diag_slot[:, None])[:, 0]
     x, _ = pcg(frows.matvec(basis.ell_cols, fsys), rhs, fdiag, tol=1e-30,
-               max_iters=flow_iters, group=frows.group)
+               max_iters=flow_iters, rows=frows)
     x_full = frows.full(x)
     dx = ell_matvec(basis.ell_cols, dt_vals, x_full)
     denom, num = frows.dot(x, dx), frows.dot(x, rhs)
@@ -127,5 +102,5 @@ def flow_level_fixed(
 
     diff = res1 - res0
     mdiff = ell_matvec(ops.cols, ops.mass_vals, diff)
-    align_err = vrows.dot(diff[vrows.sl], mdiff)
+    align_err = vrows.dot(vrows.local(diff), mdiff)
     return new_coeffs, new_tfield, align_err

@@ -32,10 +32,21 @@ Port of meshopticalflow_tpu/flow/pipeline.py:
 Everything that runs per level or per texel runs on ``FlowProblem.device``;
 the host does the mesh preprocessing and reads back a few scalars per level.
 Under a ``device_group`` (parallel/distributed.py, one process per device)
-every rank runs the same init and level loop on its own device; the halo
-flow solve and the final texel marches are split over the ranks
-(parallel/halo.py, parallel/sharding.py::advect_texture_sharded), and only
-rank 0 writes files.
+every rank runs the same host init and level loop on its own device, and
+only rank 0 writes files. With the "xla" backend (every backend but "halo"
+and "mf" becomes "xla" under a group) on the three-level cycles, or
+without a hierarchy, the problem is placed as the reference's
+``_place_on_mesh`` places it (parallel/sharding.py::place_problem): each
+rank keeps its row block of the smoothing operators and the signals (V
+rows) and of the flow basis operator (n_coeffs rows) wherever the count
+divides the world size, and the smoothing solve, the DoG preprocessing
+solve and the flow solve work on those rows (every product gathers x,
+every dot product and norm is reduced over the ranks; the unrefined
+smoothing cycle takes its dots over gathered rows); the level trace, the
+coarse levels, ``coeffs`` and ``tfield`` stay replicated. With "halo"
+the flow solve is the halo-exchange cycle of parallel/halo.py and the rest
+is replicated. The final texel marches are split over the ranks
+(parallel/sharding.py::advect_texture_sharded).
 With ``artifact_cache`` the per-mesh init work is served from the disk
 artifact cache (utils/artifacts.py) and the device state from the process
 device cache (utils/devcache.py), as the reference package serves them.
@@ -74,6 +85,7 @@ from meshopticalflow_tpu_torch.models.base import (
 from meshopticalflow_tpu_torch.models.coarse import (
     CoarseSpace, PatchLevel, VertexCoarse, VertexPatchLevel, build_coarse_space,
     build_patch_level, build_vertex_coarse, build_vertex_patch_level_from)
+from meshopticalflow_tpu_torch.parallel.sharding import Rows, place_problem
 from meshopticalflow_tpu_torch.solvers.cg import CGStats
 from meshopticalflow_tpu_torch.solvers.mg import (
     BandedBreakdownError, MG3MultiSolver, build_c1_band, build_mg_pack)
@@ -88,13 +100,24 @@ from meshopticalflow_tpu_torch.utils.artifacts import cached, file_hash, key_of
 
 @dataclasses.dataclass
 class ProblemArrays:
-    """All static device tensors of a flow problem."""
+    """All static device tensors of a flow problem. ``vrows`` / ``frows``:
+    the rows of the V-row tensors (smoothing operators, signals) and of the
+    flow basis operator that this rank holds (all of them unless
+    parallel/sharding.py::place_problem split them over a device group)."""
 
     tm: TraceMesh
     smooth_ops: SmoothingOperators
     basis: BasisDevice
-    signals: torch.Tensor    # (V, 2C) both comparison signals channel-stacked
+    signals: Optional[torch.Tensor]  # (V, 2C) both comparison signals channel-stacked
     area: torch.Tensor       # (T,)
+    vrows: Optional[Rows] = None
+    frows: Optional[Rows] = None
+
+    def __post_init__(self):
+        if self.vrows is None:
+            self.vrows = Rows(self.smooth_ops.cols.shape[0])
+        if self.frows is None:
+            self.frows = Rows(self.basis.n_coeffs)
 
 
 @dataclasses.dataclass
@@ -172,27 +195,32 @@ def _to_numpy(x: torch.Tensor) -> np.ndarray:
 # ----------------------------------------------------------------------------
 
 def _preprocess_signals(smooth_ops: SmoothingOperators, raw: torch.Tensor,
-                        config: FlowConfig, hier: Optional[Hierarchy] = None
-                        ) -> torch.Tensor:
+                        config: FlowConfig, hier: Optional[Hierarchy] = None,
+                        rows: Optional[Rows] = None) -> torch.Tensor:
     """Comparison-signal construction (OpticalFlow.cpp:820-857).
 
     raw: (2, V, 3) -> (V, 2C) channel-stacked preprocessed signals. With the
     hierarchy the DoG screened-Poisson solve is the multigrid one (the
     dogSmooth=1e-4 system is stiffness-dominated: Jacobi-PCG needs thousands
-    of iterations, multigrid tens)."""
+    of iterations, multigrid tens). Under a split ``rows`` the operators
+    are this rank's rows: the DoG solve works on them and the band is
+    gathered once; the result holds every row."""
     sig = raw
+    rows = rows or Rows(raw.shape[1])
     if config.log_space:
         sig = log_space(sig)
     if config.dog_weight > 0:
         stacked = torch.cat([sig[0], sig[1]], dim=1)                  # (V, 6)
         if hier is not None:
-            solver, b = _vertex_solver(smooth_ops, stacked, hier, config.dog_smooth)
-            smoothed, _ = solver.solve(b, x0=stacked, tol=config.cg_tol,
+            solver, b = _vertex_solver(smooth_ops, stacked, hier, config.dog_smooth,
+                                       rows)
+            smoothed, _ = solver.solve(b, x0=rows.local(stacked), tol=config.cg_tol,
                                        max_iters=min(config.cg_max_iters, 400))
-            bands = _dog_renormalize(smooth_ops, stacked, smoothed)
+            bands = _dog_renormalize(smooth_ops, stacked, smoothed, rows)
         else:
             bands = dog_band(smooth_ops, stacked, config.dog_smooth,
-                             tol=config.cg_tol, max_iters=config.cg_max_iters)
+                             tol=config.cg_tol, max_iters=config.cg_max_iters, rows=rows)
+        bands = rows.full(bands)
         if config.channels == 6:
             w = config.dog_weight
             out0 = torch.cat([sig[0] * (1 - w), bands[:, :3] * w], dim=1)
@@ -251,9 +279,13 @@ def _vertex_mg_solver(smooth_ops: SmoothingOperators, signals, hier: Hierarchy,
                           c1_band=vc.c1_band), b
 
 
-def _vertex_solver(smooth_ops: SmoothingOperators, signals, hier: Hierarchy, s_weight):
+def _vertex_solver(smooth_ops: SmoothingOperators, signals, hier: Hierarchy, s_weight,
+                   rows: Optional[Rows] = None):
     """Multi-rhs solver of the vertex smoothing system of ``hier.smooth_kind``
-    and its rhs."""
+    and its rhs; ``signals`` hold every row. Under a split ``rows`` the
+    operators are this rank's rows, and so are the rhs and the "xla"
+    solver's vectors; its dots run over the gathered rows (solvers/mg3.py:
+    the smoothing is not refined)."""
     if hier.smooth_kind == "mg3":
         return _vertex_mg_solver(smooth_ops, signals, hier, s_weight)
     vc, vp = hier.vcoarse, hier.vpatch
@@ -264,7 +296,8 @@ def _vertex_solver(smooth_ops: SmoothingOperators, signals, hier: Hierarchy, s_w
     if hier.smooth_kind == "xla":
         a2 = _vertex_patch_system(vp, w)
         return ThreeLevelSolver(smooth_ops.cols, sys_vals, diag, vc.cols0, c_vals, c_diag,
-                                vc.transfer, a2, vp.transfer), b
+                                vc.transfer, a2, vp.transfer, rows=rows,
+                                gathered_dots=True), b
     return TwoLevelSolver(smooth_ops.cols, sys_vals, diag, vc.cols0, c_vals,
                           vc.transfer), b
 
@@ -297,17 +330,22 @@ def _stage_smooth(arrays: ProblemArrays, s_weight, config: FlowConfig,
                   hier: Optional[Hierarchy] = None):
     """Per-level smoothing of the signal columns. Returns (smoothed, stats,
     info) with info the multigrid solver's streamed GB per iteration and
-    factor seconds (empty without the hierarchy)."""
+    factor seconds (empty without the hierarchy). Under split vertex rows
+    the solve works on this rank's rows, and the smoothed signal is
+    gathered once, for the trace: it holds every row."""
+    rows = arrays.vrows
+    signals = rows.full(arrays.signals)
     if hier is None:
-        out, stats = smooth_signal(arrays.smooth_ops, arrays.signals, s_weight,
-                                   tol=config.cg_tol, max_iters=config.cg_max_iters)
-        return out, stats, {}
+        out, stats = smooth_signal(arrays.smooth_ops, signals, s_weight,
+                                   tol=config.cg_tol, max_iters=config.cg_max_iters,
+                                   rows=rows)
+        return rows.full(out), stats, {}
     if hier.smooth_kind != "mg3":
-        solver, b = _vertex_solver(arrays.smooth_ops, arrays.signals, hier, s_weight)
+        solver, b = _vertex_solver(arrays.smooth_ops, signals, hier, s_weight, rows)
         out, stats = solver.solve(b, x0=arrays.signals, tol=config.cg_tol,
                                   max_iters=min(config.cg_max_iters, 200))
-        return out, stats, dict(gb_per_iter=solver.gb_per_iter,
-                                factor_s=solver.factor_seconds)
+        return rows.full(out), stats, dict(gb_per_iter=solver.gb_per_iter,
+                                           factor_s=solver.factor_seconds)
     solver, b = _vertex_mg_solver(arrays.smooth_ops, arrays.signals, hier, s_weight)
     try:
         out, stats = _stage_smooth_mg(arrays, config, solver, b)
@@ -346,13 +384,16 @@ def _advected_vertex_signals(arrays: ProblemArrays, smoothed, t1, p1):
 
 
 def _dataterm_from_samples(arrays: ProblemArrays, smoothed, t1, p1):
+    """The data term of the advected samples (replicated) and the alignment
+    error diff . M diff, its mass product on this rank's vertex rows and
+    summed over the ranks."""
     c = arrays.signals.shape[1] // 2
     resampled = _advected_vertex_signals(arrays, smoothed, t1, p1)
     res0, res1 = resampled[:, :c], resampled[:, c:]
     d_blocks, rhs_t = data_term_blocks(arrays.tm.triangles, arrays.area, res0, res1)
     diff = res1 - res0
     mdiff = ell_matvec(arrays.smooth_ops.cols, arrays.smooth_ops.mass_vals, diff)
-    align_err = torch.sum(diff * mdiff)
+    align_err = arrays.vrows.dot(arrays.vrows.local(diff), mdiff)
     return d_blocks, rhs_t, align_err
 
 
@@ -401,7 +442,8 @@ def _level_step(arrays: ProblemArrays, coeffs, tfield, s_weight, v_weight,
         arrays.basis, coeffs, d_blocks, rhs_t, v_weight,
         cg_tol=config.cg_tol, cg_max_iters=config.cg_max_iters,
         use_host_cholesky=config.use_host_cholesky,
-        refine=config.flow_refine, x0=warm_x, solve_info=flow, **solve_kw)
+        refine=config.flow_refine, x0=warm_x, solve_info=flow, rows=arrays.frows,
+        **solve_kw)
     _sync(device)
     _t3 = time.time()
     metrics = dict(
@@ -515,7 +557,9 @@ class FlowProblem:
     ``device_mesh``: "mf" raises (single-device by design), every backend
     but "halo" becomes "xla" (the reference's GSPMD path), the device cache
     is bypassed, and the texel lanes of the final marches are split over
-    the ranks."""
+    the ranks. At two or more ranks "xla" on the three-level cycles (or
+    without a hierarchy) also splits the level step's rows
+    (``_places_rows``; ``arrays.vrows`` / ``arrays.frows``)."""
 
     def __init__(
         self,
@@ -574,10 +618,13 @@ class FlowProblem:
             self.hier = self.attach_coarse_space(basis, smooth_ops, *root)
             _t = time.time()
             self.init_profile["coarse"] = _t - t_coarse
-        self.arrays = ProblemArrays(
-            tm=tm, smooth_ops=smooth_ops, basis=basis,
-            signals=self._preprocessed_signals(smooth_ops, signals),
-            area=torch.as_tensor(mesh.area).to(**kw))
+        arrays = ProblemArrays(tm=tm, smooth_ops=smooth_ops, basis=basis, signals=None,
+                               area=torch.as_tensor(mesh.area).to(**kw))
+        if self._places_rows():
+            arrays = place_problem(device_group, arrays)
+        arrays.signals = arrays.vrows.local(
+            self._preprocessed_signals(arrays.smooth_ops, signals, arrays.vrows))
+        self.arrays = arrays
         _mark("preprocess_signals")
         self.nd = None
         self._ensure_nd()
@@ -607,6 +654,17 @@ class FlowProblem:
         self._quad_tables = None
 
     # -- construction ----------------------------------------------------
+
+    def _places_rows(self) -> bool:
+        """Whether the level step's rows are split over the device group:
+        two or more ranks, the "xla" backend, and the three-level cycles or
+        no hierarchy (the runs the reference shards, tests/test_parallel.py:
+        64-110). The halo backend, the two-level cycles and the host solve
+        stay replicated."""
+        g, hier, cfg = self.device_group, self.hier, self.config
+        return (g is not None and g.world_size > 1 and cfg.flow_backend == "xla"
+                and not cfg.use_host_cholesky
+                and (hier is None or (hier.flow_kind, hier.smooth_kind) == ("xla", "xla")))
 
     def _devkey(self, *parts):
         """A device-cache key of this problem, None without a cache key."""
@@ -779,25 +837,28 @@ class FlowProblem:
         return Hierarchy(coarse=cs, patch=patch, vcoarse=vc, vpatch=vp,
                          flow_kind=flow_kind, smooth_kind=smooth_kind)
 
-    def _preprocessed_signals(self, smooth_ops: SmoothingOperators, signals) -> torch.Tensor:
-        """``_preprocess_signals`` of the raw (2, V, 3) signals, through the
+    def _preprocessed_signals(self, smooth_ops: SmoothingOperators, signals,
+                              rows: Rows) -> torch.Tensor:
+        """``_preprocess_signals`` of the raw (2, V, 3) signals on the
+        operators of ``rows``, every row of the result, through the
         artifact and device caches when the problem has a signals key and
         the DoG band (an iterative solve) is on: the key pins everything
-        that shapes the result, the device type included (the reference's
-        flow/pipeline.py:807-835)."""
+        that shapes the result, the device type and a row split included
+        (the reference's flow/pipeline.py:807-835)."""
         cfg, kw = self.config, dict(dtype=self.dtype, device=self.device)
 
         def compute():
             raw = torch.as_tensor(np.asarray(signals)).to(**kw)
-            return _preprocess_signals(smooth_ops, raw, cfg, self.hier)
+            return _preprocess_signals(smooth_ops, raw, cfg, self.hier, rows)
 
         if not (self._signals_key and cfg.dog_weight > 0):
             return compute()
         hier = self.hier
+        split = ("rows", rows.group.world_size) if rows.split else ()
         key = key_of("sigpre", self._signals_key, cfg.dog_weight, cfg.dog_smooth,
                      cfg.log_space, cfg.channels, cfg.dtype, cfg.cg_tol, cfg.cg_max_iters,
                      cfg.flow_backend, cfg.nearest, self.device.type, hier is not None,
-                     hier is not None and hier.vpatch is not None)
+                     hier is not None and hier.vpatch is not None, *split)
         return self._cached(
             ("sig_dev", key, str(self.dtype)),
             lambda: torch.as_tensor(cached(

@@ -4,8 +4,8 @@ from meshopticalflow_tpu_torch.parallel.distributed import (
     maybe_init_distributed,
 )
 from meshopticalflow_tpu_torch.parallel.sharding import (
-    level_step_shardings,
-    place_level_step,
+    Rows,
+    place_problem,
     sharded_level_step,
     advect_texture_sharded,
 )

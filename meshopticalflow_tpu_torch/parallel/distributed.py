@@ -35,6 +35,7 @@ import torch
 import torch.distributed as dist
 
 DEFAULT_TIMEOUT_S = 600.0
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 def _env(*names: str) -> Optional[str]:
@@ -109,11 +110,13 @@ class DeviceGroup:
     world_size: int
     device: torch.device
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` summed over the ranks, in place; every rank gets the same
-        sum. The identity at world size 1."""
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``t`` reduced over the ranks in place by ``op`` ("sum" or "max");
+        every rank gets the same result. The identity at world size 1."""
+        if op not in _REDUCE_OPS:
+            raise ValueError(f"unsupported reduction {op!r} (use sum or max)")
         if self.world_size > 1:
-            dist.all_reduce(t, group=self.group)
+            dist.all_reduce(t, op=_REDUCE_OPS[op], group=self.group)
         return t
 
     def all_gather_rows(self, local: torch.Tensor) -> torch.Tensor:

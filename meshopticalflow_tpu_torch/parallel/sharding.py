@@ -10,15 +10,18 @@ same partitions out on torch.distributed:
     replicated, with no traffic between ranks until the colours are
     gathered (lanes that do not divide the world size are padded with -1
     texels, which the reference asks its caller to do);
-  * operator rows: ``place_level_step`` keeps each rank's row block of
-    every padded-ELL operator whose leading axis divides the world size
-    (the reference's ``pick`` replicates the rest); ``flow_level_fixed``
-    then gathers x from every rank before each local product
-    (``all_gather_into_tensor``, the all-gather GSPMD inserts) and sums the
-    CG dot products over the ranks.
+  * operator rows: ``place_problem`` keeps each rank's row block of the
+    smoothing operators, the signals and the flow basis operator wherever
+    the leading axis divides the world size (the reference's ``pick``
+    replicates the rest, with no padding); the solvers then work on those
+    rows through ``Rows`` (ops/rows.py, re-exported here): each product
+    gathers x from every rank first (``all_gather_into_tensor``, the
+    all-gather GSPMD inserts) and every dot product and norm is summed (or
+    maxed) over the ranks.
 
 ``sharded_level_step`` is the fixed-iteration level step over a group: the
-multi-device training-step path of the reference.
+multi-device training-step path of the reference. flow/pipeline.py's
+``FlowProblem`` places its production level step with ``place_problem``.
 """
 
 from __future__ import annotations
@@ -28,48 +31,37 @@ import functools
 
 import torch
 
-from meshopticalflow_tpu_torch.flow.fixed import flow_level_fixed
 from meshopticalflow_tpu_torch.kernels.advect import advect_texture_compacted
+from meshopticalflow_tpu_torch.ops.rows import Rows
 from meshopticalflow_tpu_torch.parallel.distributed import DeviceGroup
 
-
-def _splits(n: int, group: DeviceGroup) -> bool:
-    """The reference's ``pick`` (parallel/sharding.py:60-64): a leading
-    axis of ``n`` rows is split when it divides the world size."""
-    w = group.world_size
-    return n % w == 0 and n >= w
+__all__ = ["Rows", "place_problem", "sharded_level_step", "advect_texture_sharded"]
 
 
-def _block(t: torch.Tensor, group: DeviceGroup) -> torch.Tensor:
-    b = t.shape[0] // group.world_size
-    return t[group.rank * b:(group.rank + 1) * b].contiguous()
-
-
-def level_step_shardings(group: DeviceGroup, arrays) -> dict:
-    """Which operators of ``arrays`` (flow.pipeline.ProblemArrays) are split
-    by rows on ``group``: the smoothing operators (V rows) and the flow
-    basis operator (n_coeffs rows). The trace tables, signals and the
-    basis's prolongation are replicated."""
-    return {"smooth_ops": _splits(arrays.smooth_ops.cols.shape[0], group),
-            "basis": _splits(arrays.basis.n_coeffs, group)}
-
-
-def place_level_step(group: DeviceGroup, arrays):
-    """``arrays`` with this rank's row block of each split operator: the
-    smoothing operators' cols, mass, stiffness and diagonal slots, the flow
-    basis's ell_cols, s_vals and diagonal slots."""
-    spec = level_step_shardings(group, arrays)
-    ops, basis = arrays.smooth_ops, arrays.basis
-    if spec["smooth_ops"]:
-        ops = dataclasses.replace(ops, cols=_block(ops.cols, group),
-                                  mass_vals=_block(ops.mass_vals, group),
-                                  stiff_vals=_block(ops.stiff_vals, group),
-                                  diag_slot=_block(ops.diag_slot, group))
-    if spec["basis"]:
-        basis = dataclasses.replace(basis, ell_cols=_block(basis.ell_cols, group),
-                                    s_vals=_block(basis.s_vals, group),
-                                    diag_slot=_block(basis.diag_slot, group))
-    return dataclasses.replace(arrays, smooth_ops=ops, basis=basis)
+def place_problem(group: DeviceGroup, arrays):
+    """``arrays`` (all rows) with this rank's row block of each tensor that
+    ``pick`` splits (the counterpart of the reference's
+    FlowProblem._place_on_mesh, flow/pipeline.py:851-871): the smoothing
+    operators' cols, mass, stiffness, diagonal slots and lumped masses and
+    the signals (when present) by V, the flow basis's ell_cols, s_vals and
+    diagonal slots by n_coeffs. ``arrays.vrows`` / ``arrays.frows`` say
+    which rows the rank holds. The identity at world size 1."""
+    ops, basis, signals = arrays.smooth_ops, arrays.basis, arrays.signals
+    if arrays.vrows.split or arrays.frows.split:
+        raise ValueError("place_problem: arrays are placed already")
+    vrows = Rows(ops.cols.shape[0], group)
+    frows = Rows(basis.n_coeffs, group)
+    ops = dataclasses.replace(
+        ops, cols=vrows.local(ops.cols), mass_vals=vrows.local(ops.mass_vals),
+        stiff_vals=vrows.local(ops.stiff_vals), diag_slot=vrows.local(ops.diag_slot),
+        lumped=vrows.local(ops.lumped))
+    basis = dataclasses.replace(basis, ell_cols=frows.local(basis.ell_cols),
+                                s_vals=frows.local(basis.s_vals),
+                                diag_slot=frows.local(basis.diag_slot))
+    if signals is not None:
+        signals = vrows.local(signals)
+    return dataclasses.replace(arrays, smooth_ops=ops, basis=basis, signals=signals,
+                               vrows=vrows, frows=frows)
 
 
 def sharded_level_step(group: DeviceGroup, arrays, smooth_iters: int = 16,
@@ -79,10 +71,12 @@ def sharded_level_step(group: DeviceGroup, arrays, smooth_iters: int = 16,
 
     fn(placed, coeffs, tfield, s_weight, v_weight) -> (coeffs', tfield', err),
     every output replicated."""
-    placed = place_level_step(group, arrays)
+    from meshopticalflow_tpu_torch.flow.fixed import flow_level_fixed
+
+    placed = place_problem(group, arrays)
     fn = functools.partial(flow_level_fixed, smooth_iters=smooth_iters,
                            flow_iters=flow_iters, min_step=min_step,
-                           max_steps=max_steps, group=group)
+                           max_steps=max_steps)
     return fn, placed
 
 
@@ -101,9 +95,10 @@ def advect_texture_sharded(group: DeviceGroup, tm, tfield, tri_uvs, texture, src
                                              device=src_t.device)])
         src_p = torch.cat([src_p, torch.zeros((pad, 2), dtype=src_p.dtype,
                                               device=src_p.device)])
+    lanes = Rows(src_t.shape[0], group)
     colors, _, _, exhausted = advect_texture_compacted(
-        tm, tfield, tri_uvs, texture, _block(src_t, group), _block(src_p, group),
+        tm, tfield, tri_uvs, texture, lanes.local(src_t), lanes.local(src_p),
         length, min_step, max_steps, bilinear, quad=quad)
     count = group.all_reduce(torch.tensor([exhausted], dtype=torch.int64,
                                           device=colors.device))
-    return group.all_gather_rows(colors)[:n], int(count[0])
+    return lanes.full(colors)[:n], int(count[0])

@@ -4,17 +4,20 @@ Port of meshopticalflow_tpu/solvers/cg.py. All rhs columns iterate together
 with per-column alpha/beta; iteration stops when every column's residual
 passes the relative tolerance (or at ``max_iters``).
 
-``pcg_multi`` and ``pcg`` take an optional ``group``
-(parallel/distributed.py's ``DeviceGroup``, the counterpart of the
-reference's ``axis_name``): the vectors are then each rank's row block, and
-every column dot is summed over the ranks with ``dist.all_reduce``. Without
-a group nothing changes.
+``pcg_multi``, ``pcg`` and ``ell_pcg`` take an optional ``rows``
+(ops/rows.py: the row blocks of a ``DeviceGroup``, the counterpart of the
+reference's ``axis_name``): under a split the vectors are each rank's row
+block, and every column dot is summed over the ranks with
+``dist.all_reduce``. Without a split nothing changes.
 
 ``ell_pcg`` is the solver of the main path. It runs ``chunk`` iterations
 between host convergence checks, as the reference does, so iteration counts
 come in multiples of ``chunk`` and match the reference's exactly. The
 scalars of an iteration (alpha, beta) stay on the device: a chunk enqueues
-its kernels without waiting for the card.
+its kernels without waiting for the card. Under a split ``rows`` its
+operator is this rank's rows against all columns: each product gathers p
+from every rank first (``DeviceGroup.all_gather_rows``), and every rank
+takes the same convergence decision.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from meshopticalflow_tpu_torch.ops.ell import ell_matvec
+from meshopticalflow_tpu_torch.ops.rows import Rows
 
 
 class CGStats(NamedTuple):
@@ -43,9 +47,14 @@ def _inv_diag(diag: torch.Tensor) -> torch.Tensor:
     return _safe_div(torch.ones_like(diag), diag)
 
 
-def _col_dots(u: torch.Tensor, v: torch.Tensor, group=None) -> torch.Tensor:
-    d = torch.einsum("nc,nc->c", u, v)
-    return d if group is None else group.all_reduce(d)
+def _col_dots(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("nc,nc->c", u, v)
+
+
+def _row_dots(rows: Rows, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """u . v, per column for (N, C) blocks, of vectors of ``rows``: summed
+    over the ranks that hold them."""
+    return rows.sum(_col_dots(u, v) if u.dim() == 2 else torch.dot(u, v))
 
 
 def pcg_multi(
@@ -55,34 +64,35 @@ def pcg_multi(
     x0: Optional[torch.Tensor] = None,
     tol: float = 1e-7,
     max_iters: int = 1000,
-    group=None,
+    rows: Optional[Rows] = None,
 ):
     """Solve A x = b for SPD A with C right-hand sides simultaneously.
     Tests convergence after every iteration (one host sync each). Under a
-    ``group`` b, diag, x0 and the result are this rank's rows, and
+    split ``rows`` b, diag, x0 and the result are this rank's rows, and
     ``matvec`` maps this rank's rows to this rank's rows."""
+    rows = rows or Rows(b.shape[0])
     inv_diag = _inv_diag(diag)[:, None]
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - matvec(x) if x0 is not None else b
     z = inv_diag * r
     p = z
-    rz = _col_dots(r, z, group)
-    b_norm2 = _col_dots(b, b, group)
+    rz = _row_dots(rows, r, z)
+    b_norm2 = _row_dots(rows, b, b)
     b_norm2 = torch.where(b_norm2 > 0, b_norm2, torch.ones_like(b_norm2))
     tol2 = torch.as_tensor(tol, dtype=b.dtype, device=b.device) ** 2 * b_norm2
     it = 0
-    while it < max_iters and bool(torch.any(_col_dots(r, r, group) > tol2)):
+    while it < max_iters and bool(torch.any(_row_dots(rows, r, r) > tol2)):
         ap = matvec(p)
-        alpha = _safe_div(rz, _col_dots(p, ap, group))
+        alpha = _safe_div(rz, _row_dots(rows, p, ap))
         x = x + alpha[None, :] * p
         r = r - alpha[None, :] * ap
         z = inv_diag * r
-        rz_new = _col_dots(r, z, group)
+        rz_new = _row_dots(rows, r, z)
         beta = _safe_div(rz_new, rz)
         p = z + beta[None, :] * p
         rz = rz_new
         it += 1
-    rel = float(torch.sqrt(torch.max(_col_dots(r, r, group) / b_norm2)))
+    rel = float(torch.sqrt(torch.max(_row_dots(rows, r, r) / b_norm2)))
     return x, CGStats(it, rel)
 
 
@@ -93,40 +103,36 @@ def pcg(
     x0: Optional[torch.Tensor] = None,
     tol: float = 1e-7,
     max_iters: int = 1000,
-    group=None,
+    rows: Optional[Rows] = None,
 ):
     """Single-rhs wrapper around pcg_multi."""
     mv = lambda v: matvec(v[:, 0])[:, None]
     x0c = None if x0 is None else x0[:, None]
-    x, stats = pcg_multi(mv, b[:, None], diag, x0c, tol, max_iters, group)
+    x, stats = pcg_multi(mv, b[:, None], diag, x0c, tol, max_iters, rows)
     return x[:, 0], stats
 
 
-def _ell_pcg_chunk(cols, vals, inv_diag, x, r, z, p, rz, iters: int):
+def _ell_pcg_chunk(cols, vals, inv_diag, x, r, z, p, rz, iters: int, rows: Rows):
     """``iters`` PCG iterations with no host sync; returns the state and the
-    squared residual norm (max over columns) as a device scalar."""
+    squared residual norm (max over columns) as a device scalar, summed
+    over the ranks that hold ``rows``."""
     multi = p.dim() == 2
     for _ in range(iters):
-        ap = ell_matvec(cols, vals, p)
+        ap = ell_matvec(cols, vals, rows.full(p))
+        alpha = _safe_div(rz, _row_dots(rows, p, ap))
         if multi:
-            alpha = _safe_div(rz, _col_dots(p, ap))
             x = x + alpha[None, :] * p
             r = r - alpha[None, :] * ap
             z = inv_diag[:, None] * r
-            rz_new = _col_dots(r, z)
-            beta = _safe_div(rz_new, rz)
-            p = z + beta[None, :] * p
         else:
-            alpha = _safe_div(rz, torch.dot(p, ap))
             x = x + alpha * p
             r = r - alpha * ap
             z = inv_diag * r
-            rz_new = torch.dot(r, z)
-            beta = _safe_div(rz_new, rz)
-            p = z + beta * p
+        rz_new = _row_dots(rows, r, z)
+        beta = _safe_div(rz_new, rz)
+        p = z + (beta[None, :] if multi else beta) * p
         rz = rz_new
-    r2 = torch.max(_col_dots(r, r)) if multi else torch.dot(r, r)
-    return x, r, z, p, rz, r2
+    return x, r, z, p, rz, torch.max(_row_dots(rows, r, r))
 
 
 def ell_pcg(
@@ -139,32 +145,39 @@ def ell_pcg(
     max_iters: int = 1000,
     chunk: int = 128,
     b_norm2: Optional[float] = None,
+    rows: Optional[Rows] = None,
 ):
     """Jacobi-PCG on a padded-ELL matrix with a convergence check every
     ``chunk`` iterations. ``b_norm2``: caller-known ||b||^2 (max column
-    norm^2 for multi-rhs)."""
+    norm^2 for multi-rhs). Under a split ``rows`` (ops/rows.py) cols,
+    vals, diag, b, x0 and the result are this rank's rows (cols against all
+    rows), and the convergence test reads r.r summed over the ranks."""
+    rows = rows or Rows(b.shape[0])
     inv_diag = _inv_diag(diag)
     multi = b.dim() == 2
+
+    def norm2(u):
+        return torch.max(_row_dots(rows, u, u))
+
     if x0 is None:
         x = torch.zeros_like(b)
         r = b
     else:
         x = x0
-        r = b - ell_matvec(cols, vals, x)
+        r = b - ell_matvec(cols, vals, rows.full(x))
     z = inv_diag[:, None] * r if multi else inv_diag * r
-    rz = _col_dots(r, z) if multi else torch.dot(r, z)
-    b2 = b_norm2 if b_norm2 is not None else \
-        float(torch.max(_col_dots(b, b)) if multi else torch.dot(b, b))
+    rz = _row_dots(rows, r, z)
+    b2 = b_norm2 if b_norm2 is not None else float(norm2(b))
     if b2 == 0:
         return torch.zeros_like(b), CGStats(0, 0.0)
     p = z
     threshold = (tol ** 2) * b2
     done = 0
-    r2 = float(torch.max(_col_dots(r, r)) if multi else torch.dot(r, r))
+    r2 = float(norm2(r))
     while done < max_iters and r2 > threshold:
         iters = min(chunk, max_iters - done)
         x, r, z, p, rz, r2_dev = _ell_pcg_chunk(cols, vals, inv_diag, x, r, z,
-                                                p, rz, iters)
+                                                p, rz, iters, rows)
         r2 = float(r2_dev)
         done += iters
     rel = math.sqrt(max(r2, 0.0) / b2)

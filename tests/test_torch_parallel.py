@@ -23,8 +23,20 @@ Tolerances, float64 throughout unless named:
   solo;
 * texel advection within 1e-12 (tests/test_parallel.py:61);
 * the production runs: tfield within 1e-8, per-level alignment error within
-  1e-6 (tests/test_parallel.py:82-85, 311-314), against the solo run and,
-  for ``flow_backend="halo"``, against the JAX package's sharded halo run.
+  1e-6 (tests/test_parallel.py:82-85, 311-314), against the solo run and
+  the JAX package's run on a device mesh of as many devices; under "xla"
+  every rank holds only the row blocks the reference's ``pick`` splits,
+  flow_iters equal the solo run's, and the replicated coarse solves read
+  and return the same vectors on every rank, bit for bit;
+* the three-level cycle (one column and a block of three), Jacobi-PCG and
+  the refinement loop on split rows: iteration counts equal to the
+  replicated solve's, solutions within 1e-10 relative (the three-level
+  block's, with its dots over gathered rows, equal bit for bit), every
+  rank's replicated coarse input and output equal bit for bit; the
+  replicated three-level and Jacobi-PCG solves against the reference's
+  with equal iteration counts, within 1e-10 relative;
+* smoothing and the DoG band on split rows within 1e-10 relative of the
+  reference's dog_band / smooth_signal.
 """
 
 import json
@@ -55,6 +67,7 @@ from meshopticalflow_tpu_torch.geometry.mesh import build_mesh as t_build_mesh
 from meshopticalflow_tpu_torch.geometry.subdivide import subdivide_tracked
 from meshopticalflow_tpu_torch.parallel import distributed as t_dist
 from meshopticalflow_tpu_torch.parallel import halo as t_halo
+from meshopticalflow_tpu_torch.parallel import sharding as t_sharding
 from meshopticalflow_tpu_torch.parallel.distributed import DeviceGroup
 from meshopticalflow_tpu_torch.solvers.cg import pcg, pcg_multi
 from meshopticalflow_tpu_torch.utils.testing import octa_sphere
@@ -139,7 +152,9 @@ if job == "solvers":
     prob = sphere_problem(cfg, None, False)
     fn, placed = S.sharded_level_step(g, prob.arrays, smooth_iters=16, flow_iters=16,
                                       max_steps=64)
-    res["split"] = np.array(json.dumps(S.level_step_shardings(g, prob.arrays)))
+    res["split"] = np.array(json.dumps({"smooth_ops": placed.vrows.split,
+                                        "signals": placed.vrows.split,
+                                        "basis": placed.frows.split}))
     res["local_rows"] = np.array([placed.smooth_ops.cols.shape[0],
                                   placed.basis.ell_cols.shape[0]])
     c, tf, e = fn(placed, prob.coeffs, prob.tfield, data["sw"], data["vw"])
@@ -148,22 +163,135 @@ if job == "solvers":
         g, prob.arrays.tm, t(data["adv_tfield"]), t(data["adv_uvs"]), t(data["adv_tex"]),
         t(data["adv_src_t"]), t(data["adv_src_p"]), 0.5, max_steps=64)
     res["adv"], res["adv_exhausted"] = colors.numpy(), np.array(exhausted)
+    # the three-level cycle, Jacobi-PCG and refinement on this rank's rows
+    # ("split") and on all of them ("whole", no group)
+    import dataclasses
+    from meshopticalflow_tpu_torch.flow import signal as SG
+    from meshopticalflow_tpu_torch.solvers import cg as CG, mg3 as M3, refine as R
+    from meshopticalflow_tpu_torch.solvers.twolevel import build_transfer, padded_to_csr
+    cols, vals, diag = t(data["mg_cols"]), t(data["mg_vals"]), t(data["mg_diag"])
+    n = cols.shape[0]
+    p01 = build_transfer(padded_to_csr(data["p0_idx"], data["p0_wt"],
+                                       data["c1_cols"].shape[0]), torch.float64, "cpu")
+    p12 = build_transfer(padded_to_csr(data["p12_idx"], data["p12_wt"],
+                                       data["a2"].shape[0]), torch.float64, "cpu")
+    seen = []
+
+    def three(rows, gathered_dots=False):
+        s = M3.ThreeLevelSolver(rows.local(cols), rows.local(vals), rows.local(diag),
+                                t(data["c1_cols"]), t(data["c1_vals"]), t(data["c1_diag"]),
+                                p01, t(data["a2"]), p12, nu=4, rows=rows,
+                                gathered_dots=gathered_dots)
+        real = s.coarse
+        def coarse(r1):
+            out = real(r1)
+            seen.append((r1.clone(), out.clone()))
+            return out
+        s.coarse = coarse
+        return s
+
+    def keep(key, rows, x, st):
+        res[key + "_x"] = rows.full(x).numpy()
+        res[key + "_iters"] = np.array(st.iterations)
+        res[key + "_rel"] = np.array(st.rel_residual)
+
+    for tag, rows in (("split", S.Rows(n, g)), ("whole", S.Rows(n))):
+        res["mg_local_rows_" + tag] = np.array(rows.n_local)
+        for form in ("one", "multi"):
+            seen.clear()
+            b = t(data["mg_b"] if form == "one" else data["mg_b3"])
+            # the flow solve's form sums partial dots, the smoothing's takes
+            # them over gathered rows, as the production solves do
+            x, st = three(rows, form == "multi").solve(rows.local(b), tol=1e-9,
+                                                       max_iters=400)
+            keep(f"mg3_{form}_{tag}", rows, x, st)
+            res[f"mg3_{form}_{tag}_r1"] = seen[0][0].numpy()
+            res[f"mg3_{form}_{tag}_z1"] = seen[0][1].numpy()
+            res[f"mg3_{form}_{tag}_calls"] = np.array(len(seen))
+        b = rows.local(t(data["mg_b"]))
+        x, st = CG.ell_pcg(rows.local(cols), rows.local(vals), rows.local(diag), b,
+                           tol=1e-9, max_iters=4000, chunk=16, rows=rows)
+        keep("pcg_" + tag, rows, x, st)
+        x, st = R.ell_solve_refined(rows.local(cols), rows.local(vals), rows.local(diag), b,
+                                    tol=1e-12, chunk=16, rows=rows)
+        keep("refined_" + tag, rows, x, st)
+        s = three(rows)
+        x, st = R.refine_loop(rows.local(cols), rows.local(vals), b,
+                              lambda r, tol_inner, rn2=None: s.solve(
+                                  r, tol=max(1e-10, tol_inner), max_iters=120, b_norm2=rn2),
+                              tol=1e-12, x0=rows.local(t(data["mg_x0"])), rows=rows)
+        keep("refine_mg3_" + tag, rows, x, st)
+    # smoothing and the DoG band on split vertex rows of a 576-vertex grid
+    ops = SG.make_smoothing_operators(build_mesh(data["g_tris"], vertices=data["g_verts"]),
+                                      torch.float64, "cpu")
+    for tag, rows in (("split", S.Rows(ops.cols.shape[0], g)),
+                      ("whole", S.Rows(ops.cols.shape[0]))):
+        lops = dataclasses.replace(ops, **{f.name: rows.local(getattr(ops, f.name))
+                                           for f in dataclasses.fields(ops)})
+        sig = t(data["g_sig"])
+        x, st = SG.smooth_signal(lops, sig, float(data["sw"]), tol=1e-10, max_iters=4000,
+                                 rows=rows)
+        keep("smooth_" + tag, rows, x, st)
+        res["dog_" + tag] = rows.full(SG.dog_band(lops, sig, 1e-4, tol=1e-10, max_iters=4000,
+                                                  rows=rows)).numpy()
+        res["g_local_rows_" + tag] = np.array(rows.n_local)
+    res["amax"] = g.all_reduce(torch.tensor([float(g.rank), -float(g.rank)]), op="max").numpy()
+    res["rows_amax"] = S.Rows(2 * g.world_size, g).amax(
+        torch.tensor([-3.0 * g.rank, 1.0])).numpy()
 
 elif job == "runs":
+    import hashlib
+    from meshopticalflow_tpu_torch.flow import pipeline as P
+    from meshopticalflow_tpu_torch.solvers import mg3 as M3
     base = dict(vf_mode=VectorFieldMode.WHITNEY, levels=3, dtype="float64",
                 cg_tol=1e-10, cg_max_iters=3000, artifact_cache=False)
     runs = {"plain": (dict(dog_weight=0.0), False), "full": (dict(dog_weight=1.0), True),
             "halo": (dict(dog_weight=1.0, flow_backend="halo"), True)}
+    # every replicated coarse solve's input and output, hashed in call order
+    digest = [hashlib.sha1()]
+    real_coarse = M3.ThreeLevelSolver.coarse
+    def coarse(self, r1):
+        out = real_coarse(self, r1)
+        digest[0].update(r1.numpy().tobytes())
+        digest[0].update(out.numpy().tobytes())
+        return out
+    M3.ThreeLevelSolver.coarse = coarse
+    # the level trace's lanes still marching at flow_max_steps (the fixed cap
+    # of the reference's sharded run), beside the compacted trace it runs
+    at_cap = []
+    real_trace = P.flow_field_trace_compacted
+    def trace(tm, vfield, times, t0, p0, min_step, max_steps=4096, **kw):
+        at_cap.append(real_trace(tm, vfield, times, t0, p0, min_step, max_steps,
+                                 escalate=1)[2])
+        return real_trace(tm, vfield, times, t0, p0, min_step, max_steps, **kw)
+    P.flow_field_trace_compacted = trace
     for name in data["runs"].tolist():
         kw, hier = runs[name]
+        digest[0] = hashlib.sha1()
+        at_cap.clear()
         prob = sphere_problem(FlowConfig(**base, **kw), g, hier)
         if name == "halo":
             assert (prob.hier.flow_kind, prob.hier.smooth_kind) == ("xla", "xla")
         out = prob.run()
+        a = prob.arrays
         res[name + "_backend"] = np.array(prob.config.flow_backend)
         res[name + "_tfield"] = out.tfield
+        res[name + "_coeffs"] = out.coeffs
         res[name + "_align"] = np.array([m["alignment_error"] for m in out.metrics])
         res[name + "_flow_res"] = np.array([m["flow_res"] for m in out.metrics])
+        for key in ("flow_iters", "smooth_iters", "trace_exhausted"):
+            res[f"{name}_{key}"] = np.array([m[key] for m in out.metrics])
+        res[name + "_at_cap"] = np.array(at_cap)
+        res[name + "_coarse"] = np.array(digest[0].hexdigest())
+        ops, basis = a.smooth_ops, a.basis
+        res[name + "_split_rows"] = np.array([
+            ops.cols.shape[0], ops.mass_vals.shape[0], ops.stiff_vals.shape[0],
+            ops.diag_slot.shape[0], ops.lumped.shape[0], a.signals.shape[0],
+            basis.ell_cols.shape[0], basis.s_vals.shape[0], basis.diag_slot.shape[0]])
+        res[name + "_whole_rows"] = np.array([
+            basis.p_idx.shape[0], basis.p_wt.shape[0], basis.dt_slots.shape[0],
+            a.tm.triangles.shape[0], a.area.shape[0], prob.coeffs.shape[0],
+            prob.tfield.shape[0]])
 
 elif job == "cli":
     from meshopticalflow_tpu_torch.apps.optical_flow import main
@@ -263,7 +391,9 @@ def halo_system():
     from meshopticalflow_tpu.flow.pipeline import _stage_resample, _stage_smooth
     from meshopticalflow_tpu.geometry.mesh import build_mesh
     from meshopticalflow_tpu.models.base import (build_basis, build_flow_system,
-                                                 coarse_system_vals)
+                                                 coarse_system_vals, patch_system_dense)
+    from meshopticalflow_tpu.solvers.cg import ell_pcg as j_ell_pcg
+    from meshopticalflow_tpu.solvers.mg3 import ThreeLevelSolver as JaxThreeLevel
 
     tris, verts, _, _ = sphere_signal_pair(5)
     _, basis = build_basis(build_mesh(tris, vertices=verts), JaxFlowConfig(dtype="float64"))
@@ -279,19 +409,70 @@ def halo_system():
                                 cfg, prob.vcoarse, prob.vpatch)
     d_blocks, rhs_t, _, _, _ = _stage_resample(arrays, prob.tfield, smoothed, cfg)
     lam = cfg.resolved_vf_smooth_weight()
-    sys_vals, _, rhs, _, scale = build_flow_system(arrays.basis, d_blocks, rhs_t,
-                                                   jnp.asarray(lam, jnp.float64))
-    cs = prob.coarse
-    c_vals = np.asarray(coarse_system_vals(cs.coarse_dev, d_blocks, jnp.asarray(scale),
-                                           jnp.asarray(lam))[0])
+    sys_vals, _, rhs, fdiag, scale = build_flow_system(arrays.basis, d_blocks, rhs_t,
+                                                       jnp.asarray(lam, jnp.float64))
+    cs, patch = prob.coarse, prob.patch
+    c_vals, c_diag = coarse_system_vals(cs.coarse_dev, d_blocks, jnp.asarray(scale),
+                                        jnp.asarray(lam))
+    a2 = patch_system_dense(patch.q2_idx, patch.q2_wt, d_blocks, scale, lam, patch.s2_dense)
     rng = np.random.default_rng(0)
+    mg_b = np.asarray(rhs, np.float64)
+    extra = np.random.default_rng(2).normal(size=(mg_b.shape[0], 2))
+    mg_b3 = np.concatenate([mg_b[:, None], extra * np.abs(mg_b).max()], axis=1)
+    # the reference's whole-row solves of that system: the three-level cycle
+    # (one column and three) and Jacobi-PCG, as the "solvers" job runs them
+    j3 = JaxThreeLevel(arrays.basis.ell_cols, sys_vals, fdiag, cs.coarse_dev.ell_cols,
+                       c_vals, cs.p0_idx, cs.p0_wt, a2, patch.p12_idx, patch.p12_wt, nu=4)
+    refs = {}
+    for form, b in (("one", mg_b), ("multi", mg_b3)):
+        x, st = j3.solve(jnp.asarray(b), tol=1e-9, max_iters=400)
+        refs[f"ref_mg3_{form}"] = (np.asarray(x), int(st.iterations))
+    x, st = j_ell_pcg(arrays.basis.ell_cols, sys_vals, fdiag, jnp.asarray(mg_b), tol=1e-9,
+                      max_iters=4000, chunk=16)
+    refs["ref_ell_pcg"] = (np.asarray(x), int(st.iterations))
     return dict(cols=cols, vals=vals, vals_shift=vals_shift,
                 x=rng.normal(size=cols.shape[0]),
                 b=np.random.default_rng(1).normal(size=cols.shape[0]),
                 mg_cols=np.asarray(arrays.basis.ell_cols),
-                mg_vals=np.asarray(sys_vals, np.float64), mg_b=np.asarray(rhs, np.float64),
+                mg_vals=np.asarray(sys_vals, np.float64), mg_b=mg_b,
+                mg_diag=np.asarray(fdiag, np.float64),
+                mg_b3=mg_b3,
                 p0_idx=np.asarray(cs.p0_idx), p0_wt=np.asarray(cs.p0_wt, np.float64),
-                c1_cols=np.asarray(cs.coarse_dev.ell_cols), c1_vals=c_vals)
+                c1_cols=np.asarray(cs.coarse_dev.ell_cols),
+                c1_vals=np.asarray(c_vals, np.float64), c1_diag=np.asarray(c_diag, np.float64),
+                a2=np.asarray(a2, np.float64), p12_idx=np.asarray(patch.p12_idx),
+                p12_wt=np.asarray(patch.p12_wt, np.float64), **refs)
+
+
+def _grid_inputs(n: int = 24):
+    """An n x n vertex grid over a curved patch (an open mesh whose 576
+    vertices divide 2 and 4 ranks) with a seeded six-column signal."""
+    x, y = np.meshgrid(np.linspace(0, 1, n), np.linspace(0, 1, n), indexing="ij")
+    verts = np.stack([x.ravel(), y.ravel(), 0.1 * np.sin(3 * x.ravel()) * np.cos(2 * y.ravel())],
+                     axis=1)
+    idx = np.arange(n * n).reshape(n, n)
+    a, b, c, d = (idx[:-1, :-1].ravel(), idx[1:, :-1].ravel(), idx[:-1, 1:].ravel(),
+                  idx[1:, 1:].ravel())
+    tris = np.concatenate([np.stack([a, b, c], 1), np.stack([b, d, c], 1)]).astype(np.int32)
+    return dict(g_tris=tris, g_verts=verts,
+                g_sig=np.random.default_rng(4).uniform(0, 255, (n * n, 6)))
+
+
+@pytest.fixture(scope="module")
+def grid_signal():
+    """The grid's inputs and the reference's smooth_signal (weight SW) and
+    dog_band (dogSmooth 1e-4) of its signal, float64."""
+    from meshopticalflow_tpu.flow.signal import (dog_band, make_smoothing_operators,
+                                                 smooth_signal)
+    from meshopticalflow_tpu.geometry.mesh import build_mesh
+
+    g = _grid_inputs()
+    ops = make_smoothing_operators(build_mesh(g["g_tris"], vertices=g["g_verts"]), jnp.float64)
+    sig = jnp.asarray(g["g_sig"])
+    smoothed, st = smooth_signal(ops, sig, SW, tol=1e-10, max_iters=4000)
+    ref = dict(smooth=np.asarray(smoothed), smooth_iters=int(st.iterations),
+               dog=np.asarray(dog_band(ops, sig, 1e-4, tol=1e-10, max_iters=4000)))
+    return g, ref
 
 
 def _advection_inputs(t_count: int):
@@ -307,13 +488,23 @@ def _advection_inputs(t_count: int):
 
 
 @pytest.fixture(scope="module", params=[2, 4], ids=["2ranks", "4ranks"])
-def solvers(request, halo_system, tmp_path_factory):
+def solvers(request, halo_system, grid_signal, tmp_path_factory):
     """The "solvers" job at 2 and 4 ranks and the reference's results on a
     device mesh of the same size."""
+    import scipy.sparse.linalg as spla
+
     world = request.param
     small = _sphere_inputs(False)
     adv = _advection_inputs(len(small["tris"]))
-    inputs = dict(halo_system, **small, **adv, sw=np.array(SW), vw=np.array(VW))
+    n, w = halo_system["mg_cols"].shape
+    a = sp.csc_matrix((halo_system["mg_vals"].ravel(), (np.repeat(np.arange(n), w),
+                                                        halo_system["mg_cols"].ravel())),
+                      shape=(n, n))
+    # a warm start that refinement accepts: half the solution
+    x0 = 0.5 * spla.spsolve(a, halo_system["mg_b"])
+    system = {k: v for k, v in halo_system.items() if not k.startswith("ref_")}
+    inputs = dict(system, **small, **adv, **grid_signal[0], mg_x0=x0, sw=np.array(SW),
+                  vw=np.array(VW))
     outs = _spawn("solvers", world, inputs, tmp_path_factory.mktemp("solvers"))
 
     mesh = make_device_mesh(world)
@@ -332,12 +523,54 @@ def solvers(request, halo_system, tmp_path_factory):
     x, st = j_halo.halo_mg_pcg(hm, hc, jnp.asarray(halo_system["mg_b"]), tol=1e-9,
                                max_iters=400, chunk=16)
     ref["mg"] = (np.asarray(x), int(st.iterations))
+    ref.update(grid_signal[1])
+    ref.update({k[4:]: v for k, v in halo_system.items() if k.startswith("ref_")})
     return dict(world=world, outs=outs, ref=ref, inputs=inputs)
 
 
 # --------------------------------------------------------------------------
 # In-process cases
 # --------------------------------------------------------------------------
+
+def test_all_reduce_refuses_an_unknown_op():
+    """DeviceGroup.all_reduce takes "sum" (the default) and "max" only."""
+    g = DeviceGroup(None, 0, 1, CPU)
+    x = torch.tensor([1.0, -2.0])
+    assert g.all_reduce(x.clone(), op="max").equal(x)
+    with pytest.raises(ValueError, match="reduction"):
+        g.all_reduce(x, op="min")
+
+
+@pytest.mark.parametrize("n", [66, 642, 1920])
+def test_rows_follow_the_pick_rule(n):
+    """Rows split ``n`` into equal contiguous blocks when it divides the
+    world size (the reference's ``pick``) and two or more ranks run; else
+    every rank holds all rows and nothing is gathered or reduced."""
+    t = torch.arange(float(n))
+    for world in (1, 2, 4):
+        for rank in range(world):
+            rows = t_sharding.Rows(n, DeviceGroup(None, rank, world, CPU))
+            if world > 1 and n % world == 0:
+                b = n // world
+                assert rows.split and rows.n_local == b
+                assert rows.local(t).equal(t[rank * b:(rank + 1) * b])
+            else:
+                assert not rows.split and rows.group is None and rows.n_local == n
+                assert rows.local(t) is t and rows.full(t) is t
+                assert rows.dot(t, t) == torch.sum(t * t) and rows.amax(-t) == n - 1
+
+
+def test_place_problem_at_world_one_is_the_identity(small_sphere):
+    """At world size 1 place_problem keeps every tensor as it is."""
+    _, arrays = small_sphere
+    placed = t_sharding.place_problem(DeviceGroup(None, 0, 1, CPU), arrays)
+    assert not placed.vrows.split and not placed.frows.split
+    for f in ("cols", "mass_vals", "stiff_vals", "diag_slot", "lumped"):
+        assert getattr(placed.smooth_ops, f) is getattr(arrays.smooth_ops, f)
+    for f in ("ell_cols", "s_vals", "diag_slot"):
+        assert getattr(placed.basis, f) is getattr(arrays.basis, f)
+    assert placed.signals is arrays.signals
+
 
 def test_distributed_init_noop_without_coordinator(monkeypatch):
     """maybe_init_distributed is a no-op without the environment contract,
@@ -361,10 +594,11 @@ def test_pcg_without_group_is_unchanged():
     g = DeviceGroup(None, 0, 1, CPU)
     diag = torch.diagonal(a)
     x1, s1 = pcg_multi(lambda v: a @ v, b, diag, tol=1e-12, max_iters=30)
-    x2, s2 = pcg_multi(lambda v: a @ v, b, diag, tol=1e-12, max_iters=30, group=g)
+    rows = t_sharding.Rows(len(b), g)
+    x2, s2 = pcg_multi(lambda v: a @ v, b, diag, tol=1e-12, max_iters=30, rows=rows)
     assert torch.equal(x1, x2) and s1 == s2
     y1, _ = pcg(lambda v: a @ v, b[:, 0], diag, tol=1e-12, max_iters=30)
-    y2, _ = pcg(lambda v: a @ v, b[:, 0], diag, tol=1e-12, max_iters=30, group=g)
+    y2, _ = pcg(lambda v: a @ v, b[:, 0], diag, tol=1e-12, max_iters=30, rows=rows)
     assert torch.equal(y1, y2)
 
 
@@ -480,6 +714,22 @@ def test_halo_backend_without_group_is_the_three_level_cycle():
     assert [m["flow_iters"] for m in r1.metrics] == [m["flow_iters"] for m in r2.metrics]
 
 
+@pytest.mark.parametrize("name", ["plain", "full"])
+def test_xla_under_world_one_group_is_the_solo_run(name):
+    """Under a world-size-1 group nothing is split and every helper is the
+    identity: the "xla" run equals the solo run bit for bit."""
+    kw, hier = RUNS[name]
+    cfg = FlowConfig(**RUN_KW, **dict(kw, flow_backend="xla"))
+    grouped = _port_sphere(cfg, hier, DeviceGroup(None, 0, 1, CPU))
+    assert not grouped.arrays.vrows.split and not grouped.arrays.frows.split
+    r1, r2 = grouped.run(), _port_sphere(cfg, hier).run()
+    np.testing.assert_array_equal(r1.tfield, r2.tfield)
+    np.testing.assert_array_equal(r1.coeffs, r2.coeffs)
+    for a, b in zip(r1.metrics, r2.metrics):
+        for k in ("alignment_error", "flow_iters", "smooth_iters", "flow_res"):
+            assert a[k] == b[k]
+
+
 def test_world_one_group_runs_the_halo_solver():
     """flow_backend="halo" under a world-size-1 group (the one-card case):
     the halo solver runs with the (0 -> 0) pairs, and its trajectory is the
@@ -582,7 +832,8 @@ def test_sharded_level_step_matches_single_device(solvers, small_sphere):
     for out in solvers["outs"]:
         split = json.loads(str(out["split"]))
         v, n = jp.arrays.signals.shape[0], int(jp.arrays.basis.n_coeffs)
-        assert split == {"smooth_ops": v % world == 0, "basis": n % world == 0}
+        assert split == {"smooth_ops": v % world == 0, "signals": v % world == 0,
+                         "basis": n % world == 0}
         assert out["local_rows"].tolist() == [v // world if split["smooth_ops"] else v,
                                               n // world if split["basis"] else n]
         np.testing.assert_allclose(out["fixed_c"], np.asarray(c1), atol=1e-9)
@@ -609,6 +860,88 @@ def test_sharded_texel_advection_matches(solvers, small_sphere):
         np.testing.assert_allclose(out["adv"], np.asarray(ref), atol=1e-12)
 
 
+def _same_on_every_rank(outs, *keys):
+    for key in keys:
+        for out in outs[1:]:
+            np.testing.assert_array_equal(out[key], outs[0][key])
+
+
+@pytest.mark.parametrize("form", ["one", "multi"])
+def test_three_level_solver_split_matches_replicated(solvers, form):
+    """solvers/mg3.py's cycle on this rank's fine rows, one column (the flow
+    solve's form: partial dots summed over the ranks) and a block of three
+    (the smoothing solve's form: dots over the gathered rows, so equal to
+    the replicated solve bit for bit): the replicated solve's iteration
+    count and its solution within 1e-10 relative, and the replicated coarse
+    half reading and returning the same vectors on every rank, bit for bit,
+    as often as the replicated solve calls it. The replicated solve holds
+    the reference's iteration count and its solution within 1e-10."""
+    world, outs = solvers["world"], solvers["outs"]
+    n = solvers["inputs"]["mg_cols"].shape[0]
+    x_ref, it_ref = solvers["ref"]["mg3_" + form]
+    k = f"mg3_{form}_"
+    for out in outs:
+        assert int(out["mg_local_rows_split"]) == n // world
+        assert int(out["mg_local_rows_whole"]) == n
+        assert int(out[k + "split_iters"]) == int(out[k + "whole_iters"]) == it_ref > 0
+        assert int(out[k + "split_calls"]) == int(out[k + "whole_calls"])
+        assert float(out[k + "split_rel"]) <= 1e-9
+        assert _rel(out[k + "split_x"], out[k + "whole_x"]) <= 1e-10
+        assert _rel(out[k + "whole_x"], x_ref) <= 1e-10
+        if form == "multi":
+            np.testing.assert_array_equal(out[k + "split_x"], out[k + "whole_x"])
+        np.testing.assert_array_equal(out[k + "split_r1"], out[k + "whole_r1"])
+    _same_on_every_rank(outs, k + "split_r1", k + "split_z1", k + "split_x")
+
+
+def test_ell_pcg_split_matches_replicated(solvers):
+    """Jacobi-PCG (ell_pcg) on this rank's rows: the replicated solve's
+    iterations and its solution within 1e-10 relative, on every rank; the
+    replicated solve holds the reference's ell_pcg the same way."""
+    x_ref, it_ref = solvers["ref"]["ell_pcg"]
+    for out in solvers["outs"]:
+        assert int(out["pcg_split_iters"]) == int(out["pcg_whole_iters"]) == it_ref > 0
+        assert float(out["pcg_split_rel"]) <= 1e-9
+        assert _rel(out["pcg_split_x"], out["pcg_whole_x"]) <= 1e-10
+        assert _rel(out["pcg_whole_x"], x_ref) <= 1e-10
+    _same_on_every_rank(solvers["outs"], "pcg_split_x")
+
+
+@pytest.mark.parametrize("inner", ["refined", "refine_mg3"])
+def test_refine_loop_split_matches_replicated(solvers, inner):
+    """The float64 refinement loop on this rank's rows, around Jacobi-PCG
+    (ell_solve_refined) and around the three-level cycle warm-started from
+    half the solution: the replicated loop's inner iterations and best
+    relative residual's order, its solution within 1e-10 relative."""
+    for out in solvers["outs"]:
+        assert int(out[inner + "_split_iters"]) == int(out[inner + "_whole_iters"]) > 0
+        assert float(out[inner + "_split_rel"]) < 1e-10
+        assert _rel(out[inner + "_split_x"], out[inner + "_whole_x"]) <= 1e-10
+    _same_on_every_rank(solvers["outs"], inner + "_split_x")
+
+
+def test_dog_band_split_matches_reference(solvers):
+    """smooth_signal and dog_band on this rank's vertex rows of the grid
+    (576 vertices: split at 2 and 4 ranks) against the reference's
+    smooth_signal and dog_band, within 1e-10 relative."""
+    ref, world = solvers["ref"], solvers["world"]
+    for out in solvers["outs"]:
+        assert int(out["g_local_rows_split"]) == 576 // world
+        assert int(out["smooth_split_iters"]) == int(out["smooth_whole_iters"]) \
+            == ref["smooth_iters"]
+        assert _rel(out["smooth_split_x"], ref["smooth"]) <= 1e-10
+        assert _rel(out["dog_split"], ref["dog"]) <= 1e-10
+        assert _rel(out["dog_whole"], ref["dog"]) <= 1e-10
+
+
+def test_all_reduce_max_over_ranks(solvers):
+    """DeviceGroup.all_reduce(op="max") and Rows.amax over the ranks."""
+    world = solvers["world"]
+    for out in solvers["outs"]:
+        assert out["amax"].tolist() == [world - 1.0, 0.0]
+        assert float(out["rows_amax"]) == 3.0 * (world - 1)
+
+
 RUN_KW = dict(vf_mode=VectorFieldMode.WHITNEY, levels=3, dtype="float64", cg_tol=1e-10,
               cg_max_iters=3000, artifact_cache=False)
 # name -> (config overrides, hierarchy): tests/test_parallel.py:64, :88, :284
@@ -623,10 +956,9 @@ def _run_inputs(names):
 
 @pytest.fixture(scope="module")
 def sharded_runs(tmp_path_factory):
-    """The production runs at 2 ranks (all three) and 4 ranks (halo)."""
+    """The production runs at 2 and 4 ranks, all three."""
     tmp = tmp_path_factory.mktemp("runs")
-    return {2: _spawn("runs", 2, _run_inputs(list(RUNS)), tmp),
-            4: _spawn("runs", 4, _run_inputs(["halo"]), tmp)}
+    return {world: _spawn("runs", world, _run_inputs(list(RUNS)), tmp) for world in (2, 4)}
 
 
 def _solo(name, **over):
@@ -649,18 +981,82 @@ def _assert_trajectory(out, name, other):
     assert np.abs(out[name + "_align"] - np.asarray(align)).max() < 1e-6
 
 
-@pytest.mark.parametrize("name", ["plain", "full"])
-def test_production_run_sharded_matches_single_device(sharded_runs, name):
-    """tests/test_parallel.py:64 (``plain``: no hierarchy) and :88 (``full``:
-    multigrid, DoG, refinement) at 2 ranks: under a group every backend but
-    "halo" runs the three-level "xla" pipeline, and the trajectory matches
-    that pipeline's solo run and the reference's solo run."""
-    solo, ref = _solo(name, flow_backend="xla"), _jax_solo(name)
-    for out in sharded_runs[2]:
+@pytest.fixture(scope="module")
+def run_refs():
+    """For "plain" and "full": the port's solo "xla" run, the reference's
+    solo run, and the reference's runs on device meshes of 2 and 4."""
+    refs = {}
+    for name in ("plain", "full"):
+        refs[name] = {w: _jax_solo(name, make_device_mesh(w)) for w in (2, 4)}
+        refs[name].update(solo=_solo(name, flow_backend="xla"), ref=_jax_solo(name))
+    return refs
+
+
+def _check_xla_run(outs, name, refs, world):
+    """Every rank's trajectory against the port's solo run, the reference's
+    solo run and its run on as many devices; flow_iters equal the solo
+    run's."""
+    solo = refs["solo"]
+    for out in outs:
         assert str(out[name + "_backend"]) == "xla"
         assert np.all(out[name + "_flow_res"] < 1e-6)
-        _assert_trajectory(out, name, solo)
-        _assert_trajectory(out, name, ref)
+        for other in (solo, refs["ref"], refs[world]):
+            _assert_trajectory(out, name, other)
+        assert out[name + "_flow_iters"].tolist() == [m["flow_iters"] for m in solo.metrics]
+
+
+@pytest.mark.parametrize("name", ["plain", "full"])
+def test_production_run_sharded_matches_single_device(sharded_runs, run_refs, name):
+    """tests/test_parallel.py:64 (``plain``: no hierarchy) and :88 (``full``:
+    multigrid, DoG, refinement) at 2 ranks: under a group every backend but
+    "halo" runs the three-level "xla" pipeline on this rank's rows, and the
+    trajectory matches that pipeline's solo run, the reference's solo run
+    and the reference's run on a mesh of 2 devices."""
+    _check_xla_run(sharded_runs[2], name, run_refs[name], 2)
+
+
+@pytest.mark.parametrize("name", ["plain", "full"])
+def test_production_run_four_ranks_matches_single_device(sharded_runs, run_refs, name):
+    """The same at 4 ranks, against the reference's run on 4 devices: the V
+    rows (66, 642) do not divide 4, so the smoothing stays replicated while
+    the flow basis (192, 1920 rows) splits, the reference's partition."""
+    _check_xla_run(sharded_runs[4], name, run_refs[name], 4)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", ["plain", "full"])
+def test_production_run_holds_pick_row_blocks(sharded_runs, run_refs, name, world):
+    """Each rank holds rows / world of every tensor ``pick`` splits (the
+    smoothing operators, the lumped masses and the signals by V; the flow
+    basis operator by n_coeffs) and all rows of the rest (the basis's
+    prolongation and slots, the trace tables, coeffs and tfield); the
+    replicated coarse solves read and return the same vectors on every
+    rank, bit for bit, and so do coeffs and tfield."""
+    d = _sphere_inputs(RUNS[name][1])
+    v, t = len(d["verts"]), len(d["tris"])
+    n = len(run_refs[name]["solo"].coeffs)
+    outs = sharded_runs[world]
+    for out in outs:
+        v_loc = v // world if v % world == 0 else v
+        n_loc = n // world if n % world == 0 else n
+        assert out[name + "_split_rows"].tolist() == [v_loc] * 6 + [n_loc] * 3
+        assert out[name + "_whole_rows"].tolist() == [t, t, 9 * t, t, t, n, t]
+    _same_on_every_rank(outs, name + "_coarse", name + "_tfield", name + "_coeffs",
+                        name + "_flow_iters", name + "_align")
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sharded_runs_trace_lanes_below_cap(sharded_runs, world):
+    """The level trace under a group compacts and escalates its cap where the
+    reference's sharded run marches a fixed ``flow_max_steps``
+    (meshopticalflow_tpu/flow/pipeline.py:1273): the two agree while no lane
+    reaches the cap. Count, in the split runs, the lanes still marching at
+    ``flow_max_steps``: none, at any level."""
+    for out in sharded_runs[world]:
+        for name in ("plain", "full"):
+            assert len(out[name + "_at_cap"]) == len(out[name + "_align"])
+            assert out[name + "_at_cap"].tolist() == [0] * len(out[name + "_align"])
+            assert out[name + "_trace_exhausted"].tolist() == [0.0] * len(out[name + "_align"])
 
 
 @pytest.mark.parametrize("world", [2, 4])
