@@ -6,8 +6,9 @@ Runs from the root of a checkout on a machine with one NVIDIA GPU, in phases;
 any failure raises, so the run exits non-zero and prints no final ok line.
 
   1. the card's name and power limit; refuse to run without a GPU;
-  2. build both CUDA libraries from the checkout's sources (one nvcc each,
-     started together) and, beside them, the native host library
+  2. build the three CUDA libraries from the checkout's sources (SpMV,
+     probes, the geodesic march; one nvcc each, started together) and,
+     beside them, the native host library
      (native/meshhost.cpp, g++) into meshopticalflow_tpu_torch/_build/; every
      texture draw below must rasterize with it (``init_profile``'s
      ``raster_path`` "native"), never with the numpy fallback;
@@ -120,13 +121,22 @@ any failure raises, so the run exits non-zero and prints no final ok line.
      phases 5 to 6g; then the split of one
      multigrid PCG iteration, each part timed alone (the sweeps' share of
      the levels is timed inside phase 6's run);
+  7m. each march kernel against its plain version at the main path's
+     lanes: phase 6's level trace (786,432 barycentre lanes along its last
+     tfield, float32 and float64) and halfway march (every texel lane of
+     both 2048^2 textures), the init's exp remap of phase 6's texels, and
+     phase 6c's composed Whitney marches; every lane's t and p equal bit for
+     bit and the exhausted counts equal; lanes, lane-steps, the kernel's
+     device time, the plain march's, the byte bound;
   8. the result lines.
 
 Every phase that drives a path (3, 5, 6, 6b, 6e, 6f, 6c, 6d, 6g) sets the
 launch counts to 0 just before it and reads them just after; phases 5 to 6g
-print and record the SpMV launches per form. The draws of phases 5, 6, 6b,
+print and record the SpMV launches per form and the march kernels'
+launches (every draw that traces launches them, and no plain march runs on
+CUDA tensors). The draws of phases 5, 6, 6b,
 6e, 6f and 6g run with the artifact cache off, so their init is cold as in
-earlier records. The second-to-last line is a JSON record of the nine
+earlier records. The second-to-last line is a JSON record of the twelve
 kernels; the last line is {"ok": true, "device": {...}}. The full records
 go to chiprun_out/chip_smoke/ (kernels.json, main_path_{jacobi,multigrid,
 conformal,connection,xla,mf,halo,xla_group,warm_init,tracking,spectrum,
@@ -332,6 +342,42 @@ def launches_where(counts: dict, kernel=None, dtype=None, shape=None, variant=No
     want = (kernel, dtype, shape, variant)
     return sum(v for k, v in counts["by_form"].items()
                if all(w is None or w == part for w, part in zip(want, k.split("/"))))
+
+
+def reset_counts(spmv) -> None:
+    """Zero the launch counts of the SpMV and the march kernels and their
+    plain versions' calls on CUDA tensors."""
+    from meshopticalflow_tpu_torch.kernels import tracing
+
+    spmv.reset_counts()
+    tracing.reset_counts()
+
+
+def launch_counts(spmv) -> dict:
+    """kernels/spmv.py:counts, with kernels/tracing.py:counts (the march
+    kernels' launches by kernel and by wrapper, the plain marches' calls on
+    CUDA tensors) under "march"."""
+    from meshopticalflow_tpu_torch.kernels import tracing
+
+    out = spmv.counts()
+    out["march"] = tracing.counts()
+    return out
+
+
+def check_march_launches(tag: str, counts: dict, traces: bool = True) -> None:
+    """A draw that traces launched the march kernels; no draw ran a plain
+    march on CUDA tensors."""
+    march = counts["march"]
+    if march["plain_on_cuda"] != 0:
+        raise RuntimeError(f"{tag}: a plain march ran on CUDA tensors: {march}")
+    if traces and march["march_field"] + march["march_whitney"] == 0:
+        raise RuntimeError(f"{tag}: no march kernel was launched: {march}")
+
+
+def march_line(counts: dict) -> str:
+    m = counts["march"]
+    return (f"march launches: march_field {m['march_field']}, march_whitney "
+            f"{m['march_whitney']}, exp_map {m['exp_map']}, plain on CUDA {m['plain_on_cuda']}")
 
 
 # ----------------------------------------------------------------------------
@@ -685,15 +731,16 @@ def check_tracker_goldens(spmv, cpu_blend):
     halfway_000.png at the ref_cube256 thresholds."""
     from meshopticalflow_tpu_torch.apps.track_sequence import main as track
     from meshopticalflow_tpu_torch.io.ply import read_triangle_mesh
+    from meshopticalflow_tpu_torch.kernels import advect
 
     a, b = os.path.join(GOLD, "a.ply"), os.path.join(GOLD, "b.ply")
     out = {}
-    spmv.reset_counts()
+    reset_counts(spmv)
     vdir = os.path.join(WORK, "track_vertex")
     if track(["--in", a, b, "--outDir", vdir, "--composed", "--dtype", "float64",
               "--device", DEVICE]) != 0:
         raise RuntimeError("vertex tracker CLI failed")
-    counts = spmv.counts()
+    counts = launch_counts(spmv)
     ref = read_triangle_mesh(os.path.join(GOLD, "ref_vertex.ply")).colors.astype(int)
     ours = read_triangle_mesh(os.path.join(vdir, "halfway_000.ply")).colors.astype(int)
     knife = np.abs(cpu_blend - np.round(cpu_blend)) < 1e-9
@@ -712,7 +759,7 @@ def check_tracker_goldens(spmv, cpu_blend):
     phase(4, f"TrackSequence a b --composed: halfway_000.ply {int((~off).sum())}/{off.size} "
              f"channels exact, {int(off.sum())} off by one at knife edges; composed "
              f"resample finite; launches {counts}")
-    spmv.reset_counts()
+    reset_counts(spmv)
     tdir = os.path.join(WORK, "track_texture")
     t0 = time.time()
     if track(["--mesh", os.path.join(GOLD, "cube.ply"), "--in", os.path.join(GOLD, "mA.png"),
@@ -720,7 +767,7 @@ def check_tracker_goldens(spmv, cpu_blend):
               "--dtype", "float64", "--device", DEVICE]) != 0:
         raise RuntimeError("texture tracker CLI failed")
     secs = time.time() - t0
-    counts = spmv.counts()
+    counts = launch_counts(spmv)
     rmse, exact, within1 = _texture_scores(os.path.join(tdir, "halfway_000.png"))
     out["texture"] = dict(rmse=rmse, exact=exact, within1=within1, seconds=secs,
                           launches=counts)
@@ -749,11 +796,11 @@ def check_spectrum_golden(spmv):
     mesh = build_mesh(tris, vertices=verts)
     host, basis = build_basis(mesh, FlowConfig(dtype="float64"), DEVICE)
     mass = torch.as_tensor(vector_field_mass_blocks(mesh)).to(DEVICE)
-    spmv.reset_counts()
+    reset_counts(spmv)
     stats = {}
     res = compute_spectrum(basis, mass, 6, cg_tol=1e-12, max_lanczos=min(host.n_coeffs, 600),
                            host_stepped=True, stats=stats)
-    counts = spmv.counts()
+    counts = launch_counts(spmv)
     oracle = arpack_spectrum(host, mesh, 6)
     rel = float(np.max(np.abs(res.eigenvalues - oracle) / np.abs(oracle)))
     phase(4, f"spectrum, sphere subdivided twice ({host.n_coeffs} unknowns), k 6, float64: "
@@ -787,7 +834,7 @@ def check_goldens(spmv):
 
     ref = read_triangle_mesh(os.path.join(GOLD, "ref_vertex.ply")).colors.astype(int)
     cpu = vertex_blend("cpu")
-    spmv.reset_counts()
+    reset_counts(spmv)
     gpu = vertex_blend(DEVICE)
     cpu_u8 = np.clip(cpu, 0, 255).astype(np.uint8).astype(int)
     gpu_u8 = np.clip(gpu, 0, 255).astype(np.uint8).astype(int)
@@ -809,7 +856,7 @@ def check_goldens(spmv):
     for changes, solver in CUBE_SOLVERS:
         path = os.path.join(WORK, f"golden_cube256_{solver}.png")
         argv[argv.index("--out") + 1] = path
-        spmv.reset_counts()
+        reset_counts(spmv)
         t0 = time.time()
         if solver == "multigrid":
             cli(argv)
@@ -821,7 +868,7 @@ def check_goldens(spmv):
             prob.run()
             prob.write_output(path)
         secs = time.time() - t0
-        counts = spmv.counts()
+        counts = launch_counts(spmv)
         rmse, exact, within1 = _texture_scores(path)
         out[solver] = dict(rmse=rmse, exact=exact, within1=within1, seconds=secs,
                            launches=counts)
@@ -920,7 +967,7 @@ def drive(spmv, mesh, paths, size, cfg, tag: str, n: int,
     cfg = dataclasses.replace(cfg, artifact_cache=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    spmv.reset_counts()
+    reset_counts(spmv)
     t0 = time.time()
     prob = FlowProblem.from_texture_inputs(mesh, tuple(paths), cfg, device=DEVICE,
                                            device_group=device_group)
@@ -934,7 +981,7 @@ def drive(spmv, mesh, paths, size, cfg, tag: str, n: int,
     t0 = time.time()
     blend = prob.halfway_texture()
     out_s = time.time() - t0
-    counts = spmv.counts()
+    counts = launch_counts(spmv)
     write_png_rgb(os.path.join(WORK, f"halfway_{tag}_{size}.png"), np.flipud(blend))
     total_s = init_s + run_s + out_s
     keys = LEVEL_KEYS + (MG_LEVEL_KEYS if prob.hier is not None else ()) \
@@ -993,6 +1040,7 @@ def drive(spmv, mesh, paths, size, cfg, tag: str, n: int,
              f"{counts['spmv_ell_multi']}, plain on CUDA {counts['plain_on_cuda']}")
     for form, k in counts["by_form"].items():
         phase(n, f"launches of {form}: {k}")
+    phase(n, march_line(counts))
     if hier is not None:
         phase(n, f"hierarchy {json.dumps(rec['hierarchy'])}")
     if "mg" in rec:
@@ -1005,6 +1053,9 @@ def drive(spmv, mesh, paths, size, cfg, tag: str, n: int,
         raise RuntimeError(f"{tag}: ran {len(rec['levels'])} levels, expected {cfg.levels}")
     if counts["plain_on_cuda"] != 0:
         raise RuntimeError(f"{tag}: a plain version ran on CUDA tensors: {counts}")
+    check_march_launches(tag, counts)
+    if counts["march"]["exp_map"] == 0:
+        raise RuntimeError(f"{tag}: the init's exp remap launched no exp_map kernel")
     if prob.init_profile["raster_path"] != "native":
         raise RuntimeError(f"{tag}: the texel table came from the "
                            f"{prob.init_profile['raster_path']} rasterizer, not the native one")
@@ -1714,7 +1765,7 @@ def viewer_path(spmv, paths, size, scratch: str):
                 os.environ["MESHFLOW_LIVE"] = saved[1]
 
     torch.cuda.synchronize()
-    spmv.reset_counts()
+    reset_counts(spmv)
     flow_frames = os.path.join(out_dir, "view_flow_frames.txt")
     t0 = time.time()
     with deterministic_algorithms():
@@ -1723,7 +1774,7 @@ def viewer_path(spmv, paths, size, scratch: str):
             stepped = view_flow(prob, out_dir=out_dir, interactive=False)
         torch.cuda.synchronize()
         view_s = time.time() - t0
-        counts = spmv.counts()
+        counts = launch_counts(spmv)
         ref = FlowProblem.from_texture_inputs(cube, tuple(paths), cfg, device=DEVICE)
         res = ref.run()
     same = bool(torch.equal(prob.tfield, ref.tfield))
@@ -1764,6 +1815,7 @@ def viewer_path(spmv, paths, size, scratch: str):
                 f"imports: {mpl}; PNG exports: {rec['png_exports']}")
     phase("6g", f"launches: spmv_ell {counts['spmv_ell']}, spmv_ell_multi "
                 f"{counts['spmv_ell_multi']}, plain on CUDA {counts['plain_on_cuda']}")
+    phase("6g", march_line(counts))
     _check_draw("viewer", counts, rec["alignment_error"] + [view_s, spec_s])
     if stepped != 2 or rec["flow_frames"] < 4 or rec["spectrum_frames"] < 4:
         raise RuntimeError(f"viewer: {stepped} levels, {rec['flow_frames']} / "
@@ -1793,7 +1845,7 @@ def warm_init_path(spmv, root, paths, size):
         raise RuntimeError("the CLI default does not use the artifact cache")
     devcache.clear()
     torch.cuda.synchronize()
-    spmv.reset_counts()
+    reset_counts(spmv)
     runs = []
     with deterministic_algorithms():
         for _ in range(2):
@@ -1805,7 +1857,7 @@ def warm_init_path(spmv, root, paths, size):
             res = prob.run()
             torch.cuda.synchronize()
             runs.append((prob, res, init_s, time.time() - t0))
-    counts = spmv.counts()
+    counts = launch_counts(spmv)
     (p1, r1, init1, run1), (p2, r2, init2, run2) = runs
     shared = {
         "basis": p2.arrays.basis.ell_cols is p1.arrays.basis.ell_cols,
@@ -1832,6 +1884,7 @@ def warm_init_path(spmv, root, paths, size):
     phase("6c", f"levels {run1:.2f} s / {run2:.2f} s; {len(files)} artifact files, "
                 f"{rec['artifact_mb']:.1f} MB; shared tensors {json.dumps(shared)}; "
                 f"tfield equal bit for bit: {same_tfield}")
+    phase("6c", "warm init: " + march_line(counts))
     _check_draw("warm_init", counts, [init1, init2, run1, run2] + align[0] + align[1])
     if not all(shared.values()):
         raise RuntimeError(f"warm init: the second construction rebuilt {shared}")
@@ -1935,11 +1988,12 @@ def twolevel_split(prob, tag: str):
 # Phases 6c and 6d: tracking and the spectrum at full width
 # ----------------------------------------------------------------------------
 
-def _check_draw(tag: str, counts: dict, values) -> None:
+def _check_draw(tag: str, counts: dict, values, traces: bool = True) -> None:
     if counts["spmv_ell"] == 0 or counts["spmv_ell_multi"] == 0:
         raise RuntimeError(f"{tag}: a kernel was not launched: {counts}")
     if counts["plain_on_cuda"] != 0:
         raise RuntimeError(f"{tag}: a plain version ran on CUDA tensors: {counts}")
+    check_march_launches(tag, counts, traces)
     if not all(math.isfinite(float(v)) for v in values):
         raise RuntimeError(f"{tag}: non-finite value in the record")
 
@@ -1953,6 +2007,7 @@ def tracking_path(spmv, paths, size, scratch: str):
     from meshopticalflow_tpu_torch.apps.sample_texture_to_vertices import main as bake
     from meshopticalflow_tpu_torch.apps.track_sequence import main as track
     from meshopticalflow_tpu_torch.io.ply import read_triangle_mesh
+    from meshopticalflow_tpu_torch.kernels import advect
 
     t0 = time.time()
     frames = []
@@ -1963,14 +2018,27 @@ def tracking_path(spmv, paths, size, scratch: str):
             raise RuntimeError("SampleTextureToVertices failed")
     bake_s = time.time() - t0
     out = os.path.join(scratch, "track_full")
+    # the composed resample's inputs, for phase 7m's Whitney lanes
+    real_composed = advect.resample_signal_composed_whitney
+    composed_args = {}
+
+    def recording_composed(tm, edge_fields, values, length, min_step=1e-2, max_steps=4096):
+        composed_args.update(tm=tm, fields=edge_fields, length=length, min_step=min_step,
+                             max_steps=max_steps)
+        return real_composed(tm, edge_fields, values, length, min_step, max_steps)
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    spmv.reset_counts()
+    reset_counts(spmv)
+    advect.resample_signal_composed_whitney = recording_composed
     t0 = time.time()
-    rc = track(["--in", frames[0], frames[1], frames[0], "--outDir", out, "--composed",
-                "--device", DEVICE])
+    try:
+        rc = track(["--in", frames[0], frames[1], frames[0], "--outDir", out, "--composed",
+                    "--device", DEVICE])
+    finally:
+        advect.resample_signal_composed_whitney = real_composed
     total_s = time.time() - t0
-    counts = spmv.counts()
+    counts = launch_counts(spmv)
     if rc != 0:
         raise RuntimeError("TrackSequence failed")
     with open(os.path.join(out, "metrics.jsonl")) as f:
@@ -1997,13 +2065,17 @@ def tracking_path(spmv, paths, size, scratch: str):
                 f"{counts['spmv_ell_multi']}, plain on CUDA {counts['plain_on_cuda']}")
     for form, k in counts["by_form"].items():
         phase("6c", f"launches of {form}: {k}")
+    phase("6c", march_line(counts))
     values = [v for p in pairs for v in [p["init_seconds"], p["level_seconds"],
                                            p["alignment_error"], *p["flow_iters"]]]
     _check_draw("tracking", counts, values + [bake_s, total_s, rec["composed_s"]])
+    if counts["march"]["march_whitney"] == 0 or not composed_args:
+        raise RuntimeError(f"tracking: the composed resample launched no Whitney march: "
+                           f"{counts['march']}")
     if len(pairs) != 2 or not np.isfinite(comp.colors).all():
         raise RuntimeError(f"tracking: {len(pairs)} pairs, composed colours finite "
                            f"{np.isfinite(comp.colors).all()}")
-    return rec
+    return rec, composed_args
 
 
 SPECTRUM_FRACTION = 0.018      # the cube at this edge length: 49,152 triangles
@@ -2031,7 +2103,7 @@ def spectrum_path(spmv, scratch: str):
     cube = os.path.join(GOLD, "cube.ply")
     stats = {}
     torch.cuda.synchronize()
-    spmv.reset_counts()
+    reset_counts(spmv)
     t0 = time.time()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -2039,7 +2111,7 @@ def spectrum_path(spmv, scratch: str):
                        DEVICE, "--outPrefix", os.path.join(scratch, "spectrum"), "--verbose"],
                       stats=stats)
     total_s = time.time() - t0
-    counts = spmv.counts()
+    counts = launch_counts(spmv)
     printed = buf.getvalue()
     if rc != 0 or "m_alloc" not in stats["restarts"][0]:
         raise RuntimeError("Spectrum CLI failed or did not take the block path")
@@ -2127,7 +2199,8 @@ def spectrum_path(spmv, scratch: str):
                 f"{counts['spmv_ell_multi']}, plain on CUDA {counts['plain_on_cuda']}")
     for form, k in counts["by_form"].items():
         phase("6d", f"launches of {form}: {k}")
-    _check_draw("spectrum", counts, [total_s, *eigenvalues, *split.values()])
+    phase("6d", march_line(counts))
+    _check_draw("spectrum", counts, [total_s, *eigenvalues, *split.values()], traces=False)
     if not rec["max_rel_err"] <= 1e-3:
         raise RuntimeError(f"spectrum: max rel err {rec['max_rel_err']:.3e} > 1e-3")
     return rec, (basis, pack)
@@ -2316,6 +2389,160 @@ def check_spmv(spmv, operators, l2_tb_s: float, draws: dict):
     return report
 
 
+# ----------------------------------------------------------------------------
+# Phase 7m: the march kernels against their plain versions
+# ----------------------------------------------------------------------------
+
+# The reference package's marches (XLA while_loops, no Pallas kernel).
+MARCH_REPLACES = {
+    "march_field": "meshopticalflow_tpu/kernels/tracing.py:159",
+    "march_whitney": "meshopticalflow_tpu/kernels/tracing.py:320",
+    "exp_map": "meshopticalflow_tpu/kernels/tracing.py:623",
+}
+# Floating-point operations of one lane-step of csrc/trace.cu, counted from
+# its source (edge exit 12, metric 9 + 3, advance 5, crossing 16; the
+# Whitney form's field at the point 16 more; exp_map's step 32).
+MARCH_OPS_PER_STEP = {"march_field": 45, "march_whitney": 61, "exp_map": 32}
+MARCH_ESCALATE = 16            # flow_field_trace_compacted's default
+
+
+def _march_bytes(kernel: str, tm, n: int, lane_floats: int, elem: int, field_rows: int,
+                 lane_steps: int) -> int:
+    """Bytes the march must move: every lane's start (t int64, lane_floats
+    values) and end (t, p) once, and the table rows it reads once: the
+    whole tables (metric, opposite, transition map and offset; the field,
+    or the Whitney coefficients and inverse metric) or, where this run's
+    lanes take fewer steps than that, the rows a step reads at most (metric
+    3 values; on a crossing the opposite, map and offset; on a re-read the
+    field), counted once a lane-step."""
+    t = tm.n_triangles
+    tables = 3 * t * (8 + 6 * elem)                    # opp, lin, const
+    per_step = 8 + 6 * elem
+    if kernel != "exp_map":
+        tables += 4 * t * elem + field_rows * elem      # g, field
+        per_step += 3 * elem + 2 * elem
+    if kernel == "march_whitney":
+        tables += 4 * t * elem                          # g_inv
+        per_step += 5 * elem
+    lanes = n * (8 + lane_floats * elem) + n * (8 + 2 * elem)
+    return lanes + min(tables, lane_steps * per_step)
+
+
+def _march_case(tracing, kernel: str, label: str, call, plain, launch, bytes_of,
+                dtype_name: str, plain_reps: int) -> dict:
+    """Hold one march to its plain version: every lane's t and p equal bit
+    for bit and the exhausted counts equal, then time the kernel (CUDA
+    events, ``launch`` = the wrapper's launch without its read-back) and
+    the plain version (wall clock to a synchronize)."""
+    import torch
+
+    got = call()
+    stats = tracing.last_stats(kernel)
+    ref = plain()
+    torch.cuda.synchronize()
+    t_diff = got[0] != ref[0]
+    p_diff = (got[1] != ref[1]).any(dim=1)
+    differ = int((t_diff | p_diff).sum())
+    err = float((got[1] - ref[1]).abs().max()) if got[1].numel() else 0.0
+    rec = dict(name=kernel, case=label, dtype=dtype_name, lanes=stats["lanes"],
+               lane_steps=stats["lane_steps"], max_lane_steps=stats["max_lane_steps"],
+               exhausted=got[2], plain_exhausted=ref[2], lanes_differing=differ,
+               t_differing=int(t_diff.sum()), max_abs_err=err)
+    if differ or got[2] != ref[2] or stats["exhausted"] != got[2]:
+        raise RuntimeError(f"{kernel} ({label}): {differ} of {stats['lanes']} lanes differ "
+                           f"from the plain march (t {rec['t_differing']}, max |dp| {err:.3e});"
+                           f" exhausted {got[2]} against {ref[2]}")
+    rec["ms"] = median_ms(launch, reps=10, inner=2)
+    rec["plain_ms"] = _wall_ms(plain, reps=plain_reps)
+    flops = MARCH_OPS_PER_STEP[kernel] * stats["lane_steps"]
+    rec["bound_ms"], rec["bound_by"] = bound(bytes_of(stats["lane_steps"]), flops, dtype_name)
+    rec["library_ms"] = None          # no one PyTorch call computes a march
+    phase("7m", f"{kernel} ({label}, {dtype_name}): {stats['lanes']} lanes equal to the plain "
+                f"march bit for bit, exhausted {got[2]}; lane-steps {stats['lane_steps']} "
+                f"(max {stats['max_lane_steps']}); kernel {rec['ms']:.3f} ms, plain "
+                f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms'] * 1e3:.2f} us "
+                f"({rec['bound_by']})")
+    return rec
+
+
+def check_march(prob, composed) -> list:
+    """Phase 7m: each march kernel on the card against its plain version at
+    the main path's lanes: the multigrid cell's level trace (its 2T
+    barycentre lanes at -1/2 and +1/2 along phase 6's last tfield, float32,
+    then in float64), the halfway march (every texel lane of both 2048^2
+    textures), the init's exp remap (phase 6's out-of-triangle texels), and
+    the composed tracker's Whitney marches (phase 6c's fields, last to
+    first, from the barycentres)."""
+    import torch
+    from meshopticalflow_tpu_torch.flow.pipeline import _halfway_lanes
+    from meshopticalflow_tpu_torch.kernels import advect, tracing
+
+    cfg, tm, tfield = prob.config, prob.arrays.tm, prob.tfield
+    dev, dtype = tfield.device, tfield.dtype
+    min_step, max_steps = cfg.flow_min_step, cfg.flow_max_steps
+    budget = max_steps * MARCH_ESCALATE
+    rows = []
+
+    def field_case(label, tmx, field, times, t0, p0, dtype_name, plain_reps=5):
+        elem = field.element_size()
+        rows.append(_march_case(
+            tracing, "march_field", label,
+            lambda: advect.flow_field_trace_compacted(tmx, field, times, t0, p0, min_step,
+                                                      max_steps),
+            lambda: advect.flow_field_trace_compacted_plain(tmx, field, times, t0, p0,
+                                                            min_step, max_steps),
+            lambda: tracing.march(tmx, times, t0, p0, min_step, budget, vfield=field),
+            lambda steps: _march_bytes("march_field", tmx, t0.shape[0], 3, elem,
+                                       2 * tmx.n_triangles, steps),
+            dtype_name, plain_reps))
+
+    t_count = tm.n_triangles
+    t0 = torch.arange(t_count, device=dev).repeat(2)
+    p0 = torch.full((2 * t_count, 2), 1.0 / 3.0, dtype=dtype, device=dev)
+    times = torch.cat([torch.full((t_count,), -0.5, dtype=dtype, device=dev),
+                       torch.full((t_count,), 0.5, dtype=dtype, device=dev)])
+    field_case("level trace", tm, tfield, times, t0, p0, "float32")
+    t2, p2, times2 = _halfway_lanes(prob._advect_src_t, prob._advect_src_p, -0.5, 0.5)
+    field_case("halfway", tm, tfield, times2, t2, p2, "float32", plain_reps=3)
+    del t2, p2, times2
+    tm64 = tracing.make_trace_mesh(prob.mesh, torch.float64, dev)
+    field_case("level trace", tm64, tfield.double(), times.double(), t0, p0.double(),
+               "float64")
+    del tm64
+
+    src = prob.texture_source
+    idx = torch.as_tensor(np.nonzero(src.needs_remap)[0]).to(dev)
+    t_in = torch.as_tensor(src.tri_idx).to(device=dev, dtype=torch.int64)[idx]
+    p_in = torch.as_tensor(src.bary).to(device=dev, dtype=dtype)[idx]
+    center = torch.full_like(p_in, 1.0 / 3.0)
+    v = p_in - center
+    rows.append(_march_case(
+        tracing, "exp_map", "exp remap",
+        lambda: tracing.exp_map(tm, t_in, center, v, with_diagnostics=True),
+        lambda: tracing.exp_map_plain(tm, t_in, center, v, with_diagnostics=True),
+        lambda: tracing.march_exp(tm, t_in, center, v, 1024),
+        lambda steps: _march_bytes("exp_map", tm, t_in.shape[0], 4, 4, 0, steps),
+        "float32", 5))
+
+    ctm, fields = composed["tm"], composed["fields"]
+    length, c_step, c_max = composed["length"], composed["min_step"], composed["max_steps"]
+    t = torch.arange(ctm.n_triangles, device=dev)
+    p = torch.full((ctm.n_triangles, 2), 1.0 / 3.0, dtype=fields.dtype, device=dev)
+    for k, ce in enumerate(reversed(fields)):
+        rows.append(_march_case(
+            tracing, "march_whitney", f"composed field {k + 1} of {len(fields)}",
+            lambda: tracing.whitney_flow_trace(ctm, ce, length, t, p, c_step, c_max,
+                                               with_diagnostics=True),
+            lambda: tracing.whitney_flow_trace_plain(ctm, ce, length, t, p, c_step, c_max,
+                                                     with_diagnostics=True),
+            lambda: tracing.march(ctm, length, t, p, c_step, c_max, ce=ce),
+            lambda steps: _march_bytes("march_whitney", ctm, t.shape[0], 2, 4,
+                                       3 * ctm.n_triangles, steps),
+            "float32", 5))
+        t, p = tracing.whitney_flow_trace(ctm, ce, length, t, p, c_step, c_max)
+    return rows
+
+
 def iteration_split(prob):
     """One multigrid PCG iteration of the last level's flow system, each
     part timed alone: the exact c1 solve (the two banded sweeps), the whole
@@ -2392,7 +2619,7 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
 
     sys.path.insert(0, REPO)
     from meshopticalflow_tpu_torch import native
-    from meshopticalflow_tpu_torch.kernels import build, probes, spmv
+    from meshopticalflow_tpu_torch.kernels import build, probes, spmv, tracing
 
     os.makedirs(WORK, exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2401,10 +2628,11 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
     t0 = time.time()
     with ThreadPoolExecutor(1) as pool:
         host_lib = pool.submit(native.build)      # g++, beside the nvcc builds
-        libs = build.build_all([spmv.LIBRARY, probes.LIBRARY])
+        libs = build.build_all([spmv.LIBRARY, probes.LIBRARY, tracing.LIBRARY])
         libs["meshhost"] = host_lib.result()
     spmv.LIBRARY.load()
     probes.LIBRARY.load()
+    tracing.LIBRARY.load()
     if native.get_lib() is None:
         raise RuntimeError("the native host library does not load")
     phase(2, f"built {', '.join(os.path.relpath(p, REPO) for p in libs.values())} "
@@ -2449,7 +2677,7 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
     draws["warm_init"] = warm_init_path(spmv, root, paths, size)
     torch.cuda.empty_cache()
 
-    draws["tracking"] = tracking_path(spmv, paths, size, scratch)
+    draws["tracking"], composed = tracking_path(spmv, paths, size, scratch)
     torch.cuda.empty_cache()
     draws["spectrum"], spectrum_ops = spectrum_path(spmv, scratch)
     operators += spectrum_operators(*spectrum_ops)
@@ -2462,6 +2690,8 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
     spmv_report = check_spmv(spmv, operators, rates["l2_copy_tb_s"], draws)
     del operators, spectrum_ops
     record_halo_form(spmv_report, draws["halo"])
+    march_report = check_march(prob, composed)
+    del composed
     split = iteration_split(prob)
     del prob
     torch.cuda.empty_cache()
@@ -2482,6 +2712,20 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
             **{f"launches_{tag}_path": draws[tag]["launches"][name]
                for tag in ("jacobi", "conformal", "connection", "xla", "mf", "halo",
                            "xla_group", "warm_init", "tracking", "spectrum", "viewer")}))
+    for name, draw in (("march_field", "multigrid"), ("march_whitney", "tracking"),
+                       ("exp_map", "multigrid")):
+        r = next(r for r in march_report if r["name"] == name)
+        kernels.append(dict(
+            name=name, route="cuda", source="meshopticalflow_tpu_torch/csrc/trace.cu",
+            replaces=MARCH_REPLACES[name], launches=draws[draw]["launches"]["march"][name],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+            lanes=r["lanes"], lane_steps=r["lane_steps"], max_lane_steps=r["max_lane_steps"],
+            exhausted=r["exhausted"],
+            **{f"launches_{tag}_path": draws[tag]["launches"]["march"][name]
+               for tag in ("multigrid", "jacobi", "conformal", "connection", "xla", "mf",
+                           "halo", "xla_group", "warm_init", "tracking", "spectrum",
+                           "viewer")}))
     for fn_name, rec in probe_report.items():
         kernels.append(dict(
             name=fn_name, route="cuda", source="meshopticalflow_tpu_torch/csrc/probes.cu",
@@ -2492,6 +2736,7 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
     elapsed = time.time() - t_start
     with open(os.path.join(WORK, "kernels.json"), "w") as f:
         json.dump(dict(card=card, rates=rates, spmv=spmv_report, probes=probe_report,
+                       march=march_report,
                        iteration_split=split, sweeps=mg_rec["sweeps"], goldens=goldens,
                        twolevel_split={t: draws[t]["split"] for t in ("conformal",
                                                                       "connection")},

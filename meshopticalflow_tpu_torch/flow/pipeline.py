@@ -361,8 +361,9 @@ def _stage_smooth(arrays: ProblemArrays, s_weight, config: FlowConfig,
 
 def _trace_pair(tm: TraceMesh, tfield, dtype, min_step, max_steps):
     """Barycentre lanes advected by -1/2 (first half) and +1/2 (second), in
-    one compacted march with cap escalation (the reference package's
-    single-device path). Returns (t1, p1, exhausted-lane count)."""
+    one march with cap escalation (the reference package's single-device
+    path; on the card one launch of the march_field kernel). Returns (t1,
+    p1, exhausted-lane count)."""
     t_count, device = tm.n_triangles, tfield.device
     t0 = torch.arange(t_count, device=device).repeat(2)
     p0 = torch.full((2 * t_count, 2), 1.0 / 3.0, dtype=dtype, device=device)

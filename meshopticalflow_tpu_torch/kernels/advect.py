@@ -11,6 +11,12 @@ Port of meshopticalflow_tpu/kernels/advect.py:
     advected through a sequence of Whitney fields, last to first;
   * the bilinear texture fetch (MeshFlow.inl:65-84) with its y-flip and
     clamping semantics.
+
+Every march here goes through the wrappers of kernels/tracing.py (the
+march kernels of csrc/trace.cu on CUDA tensors) or, for the compacted
+form, ``flow_field_trace_compacted``: one march_field launch on CUDA
+tensors, the compacted plain march (``flow_field_trace_compacted_plain``)
+on CPU tensors.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ import torch
 
 from meshopticalflow_tpu_torch.kernels.tracing import (
     CHECK_EVERY, TraceMesh, _finish, _flow_init, _flow_step, _tables,
-    flow_field_trace, whitney_flow_trace)
+    flow_field_trace, march, whitney_flow_trace)
 
 
 def sample_vertex_signal(triangles: torch.Tensor, values: torch.Tensor,
@@ -116,8 +122,27 @@ def sample_texture_bilinear(texture: torch.Tensor, uv: torch.Tensor,
 def flow_field_trace_compacted(tm: TraceMesh, vfield, times, t0, p0, min_step,
                                max_steps: int = 4096, escalate: int = 16,
                                check_every: int = CHECK_EVERY):
-    """flow_field_trace with lane compaction and cap escalation (port of
-    meshopticalflow_tpu/kernels/advect.py:flow_field_trace_compacted).
+    """flow_field_trace with a budget of ``escalate * max_steps`` steps a
+    lane (port of meshopticalflow_tpu/kernels/advect.py:
+    flow_field_trace_compacted). Returns (t1, p1, exhausted_count).
+
+    CUDA tensors: one launch of the march_field kernel, whose lanes each
+    march to their own end or budget (so nothing is compacted), and one
+    read of the exhausted count. CPU tensors: the compacted plain version."""
+    if not p0.is_cuda:
+        return flow_field_trace_compacted_plain(tm, vfield, times, t0, p0, min_step,
+                                                max_steps, escalate, check_every)
+    t1, p1, stats = march(tm, times, t0, p0, min_step, max_steps * max(int(escalate), 1),
+                          vfield=vfield)
+    flow_field_trace_compacted.launches += int(p0.shape[0] > 0)
+    return t1, p1, int(stats[0])
+
+
+def flow_field_trace_compacted_plain(tm: TraceMesh, vfield, times, t0, p0, min_step,
+                                     max_steps: int = 4096, escalate: int = 16,
+                                     check_every: int = CHECK_EVERY):
+    """flow_field_trace with lane compaction and cap escalation, in plain
+    PyTorch.
 
     Path lengths are heavy-tailed: between checks, once at most half of the
     marching lanes are live, the live ones are gathered into a smaller batch
@@ -127,6 +152,8 @@ def flow_field_trace_compacted(tm: TraceMesh, vfield, times, t0, p0, min_step,
     results equal an uncompacted march of the same step budget.
 
     Returns (t1, p1, exhausted_count)."""
+    if p0.is_cuda:
+        flow_field_trace_compacted_plain.cuda_calls += 1
     tab = _tables(tm, vfield)
     full = _flow_init(tab, times, t0, p0, min_step)
     total_budget = max_steps * max(int(escalate), 1)
@@ -150,6 +177,10 @@ def flow_field_trace_compacted(tm: TraceMesh, vfield, times, t0, p0, min_step,
     full = _scatter_lanes(full, idx, sub)
     final_t, final_p = _finish(full, t0, p0)
     return final_t, final_p, int(full["active"].sum())
+
+
+flow_field_trace_compacted.launches = 0
+flow_field_trace_compacted_plain.cuda_calls = 0
 
 
 def _scatter_lanes(full, idx, sub):

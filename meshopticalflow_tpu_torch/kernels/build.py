@@ -2,8 +2,10 @@
 
 Each library is one ``csrc/*.cu`` file with a plain C interface, compiled
 for ``sm_90a`` at first use into ``_build/`` beside this package's sources
-and keyed by a hash of the source, so an edited source builds anew and an
-unchanged one is loaded as it is. ``build_all`` starts one nvcc per library
+and keyed by a hash of the source and its nvcc flags, so an edited source
+or flag builds anew and an unchanged one is loaded as it is. A library
+takes ``NVCC_FLAGS`` unless it names its own (the march library adds
+``-fmad=false``). ``build_all`` starts one nvcc per library
 at once and waits for all of them (the first call on a fresh machine).
 """
 
@@ -45,16 +47,23 @@ class CudaLibrary:
     and returns the handle that ``load()`` hands out.
     """
 
-    def __init__(self, stem: str, source: str, bind: Callable[[ctypes.CDLL], Any]):
+    def __init__(self, stem: str, source: str, bind: Callable[[ctypes.CDLL], Any],
+                 flags: Tuple[str, ...] = NVCC_FLAGS):
         self.stem = stem
         self.source = CSRC / source
+        self.flags = tuple(flags)
         self._bind = bind
         self._lib: Any = None
         self._lock = threading.Lock()
 
     def path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
+        key = self.source.read_bytes() + "\0".join(self.flags).encode()
+        digest = hashlib.sha256(key).hexdigest()[:16]
         return BUILD_DIR / f"lib{self.stem}_{digest}.so"
+
+    def command(self, out: str, compiler: Optional[str] = None) -> list:
+        """The nvcc command line that builds this library into ``out``."""
+        return [compiler or nvcc(), *self.flags, "-o", out, str(self.source)]
 
     def start(self) -> Optional[Tuple[subprocess.Popen, str, Path, list]]:
         """Start nvcc unless the library is built; returns the pending build."""
@@ -64,7 +73,7 @@ class CudaLibrary:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(self.source)]
+        cmd = self.command(tmp)
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                 text=True)
         return proc, tmp, out, cmd

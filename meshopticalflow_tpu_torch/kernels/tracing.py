@@ -15,22 +15,38 @@ barycentres) at once.
   * ``exp_map``: straight-line geodesic of a Hermite sample, used to remap
     out-of-chart texels (FEM.inl:834-899).
 
-A step is a fixed sequence of elementwise tensor ops plus five gathers
-(metric and field by triangle; opposite edge, transition map and offset by
-half-edge). Lanes that stop keep their state frozen, so extra steps are
-no-ops: the loops test for live lanes every ``check_every`` steps (a host
-sync each) and still stop at ``max_steps`` exactly.
+On CUDA tensors ``flow_field_trace``, ``whitney_flow_trace`` and ``exp_map``
+(and kernels/advect.py:flow_field_trace_compacted) launch the hand-written
+kernels of ``csrc/trace.cu`` (march_field, march_whitney, exp_map; one
+thread per lane, marching to its own end or step budget), or raise; the
+reference package runs these marches as XLA while_loops with no Pallas
+kernel. On CPU tensors they run their plain PyTorch versions (``*_plain``),
+whose arithmetic the kernels repeat op for op, so that end points agree bit
+for bit. Each wrapper counts its launches in ``<wrapper>.launches``
+(``LAUNCHES`` by kernel); each plain version counts the calls it gets with
+CUDA tensors in ``<plain>.cuda_calls``. ``gradient_flow_trace`` and
+``flow_field_trace_distance`` are on no CLI's path and stay plain PyTorch.
+
+A plain step is a fixed sequence of elementwise tensor ops plus five
+gathers (metric and field by triangle; opposite edge, transition map and
+offset by half-edge). Lanes that stop keep their state frozen, so extra
+steps are no-ops: the loops test for live lanes every ``check_every`` steps
+(a host sync each) and still stop at ``max_steps`` exactly.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+from collections import Counter
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from meshopticalflow_tpu_torch.geometry.mesh import HostMesh
+from meshopticalflow_tpu_torch.kernels.build import (
+    NVCC_FLAGS, CudaLibrary, raise_on, stream_of)
 
 CHECK_EVERY = 32
 
@@ -279,7 +295,7 @@ def _finish(state, t_idx, p):
     return final_t, final_p
 
 
-def flow_field_trace(
+def flow_field_trace_plain(
     tm: TraceMesh,
     vfield: torch.Tensor,       # (T, 2) per-triangle field (chart coordinates)
     flow_time,                  # scalar or (N,) flow time (sign = direction)
@@ -296,6 +312,8 @@ def flow_field_trace(
     ``with_diagnostics`` appends the number of lanes still live when the
     ``max_steps`` cap stopped the march (the reference warns per lane on cap
     exhaustion, FEM.inl:897,992)."""
+    if p.is_cuda:
+        flow_field_trace_plain.cuda_calls += 1
     tab = _tables(tm, vfield)
     state = _flow_init(tab, flow_time, t_idx, p, min_step)
     state, _ = _run_steps(lambda s: _flow_step(s, tab, min_step, eps), state,
@@ -306,7 +324,7 @@ def flow_field_trace(
     return final_t, final_p
 
 
-def whitney_flow_trace(
+def whitney_flow_trace_plain(
     tm: TraceMesh,
     ce: torch.Tensor,           # (3T,) signed half-edge Whitney coefficients
     flow_time,
@@ -321,6 +339,8 @@ def whitney_flow_trace(
     of ``flow_field_trace`` with the Whitney field re-evaluated at the
     current point. ``flow_time`` may be scalar or per-lane (N,);
     ``with_diagnostics`` appends the cap-exhausted lane count."""
+    if p.is_cuda:
+        whitney_flow_trace_plain.cuda_calls += 1
     tab = _tables(tm, ce=ce)
     state = _flow_init(tab, flow_time, t_idx, p, min_step)
     state, _ = _run_steps(lambda s: _flow_step(s, tab, min_step, eps), state, max_steps)
@@ -438,7 +458,7 @@ def flow_field_trace_distance(
     return final_t, final_p, state["dist"]
 
 
-def exp_map(
+def exp_map_plain(
     tm: TraceMesh,
     t_idx: torch.Tensor,   # (N,)
     p: torch.Tensor,       # (N, 2)
@@ -450,6 +470,8 @@ def exp_map(
     """Batched FEM::RiemannianMesh::exp (FEM.inl:834-899): straight-line
     geodesic carrying the remaining displacement across charts.
     ``with_diagnostics`` appends the cap-exhausted lane count."""
+    if p.is_cuda:
+        exp_map_plain.cuda_calls += 1
     n = p.shape[0]
     valid = t_idx >= 0
     t = torch.clamp(t_idx.to(torch.int64), min=0)
@@ -509,3 +531,204 @@ def exp_map(
     if with_diagnostics:
         return final_t, final_p, int(state["active"].sum())
     return final_t, final_p
+
+
+flow_field_trace_plain.cuda_calls = 0
+whitney_flow_trace_plain.cuda_calls = 0
+exp_map_plain.cuda_calls = 0
+
+
+# -- the CUDA kernels (csrc/trace.cu) ------------------------------------------
+
+_TAGS = {torch.float32: "f32", torch.float64: "f64"}
+KERNELS = ("march_field", "march_whitney", "exp_map")
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i64, f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
+    march = [p, p, p, p, p, p, p, p, p, i64, i64, f64, f64, i64, p, p, p, p]
+    exp = [p, p, p, p, p, p, i64, f64, i64, p, p, p, p]
+    for tag in _TAGS.values():
+        for name, args in ((f"march_field_{tag}", march), (f"march_whitney_{tag}", march),
+                           (f"exp_map_{tag}", exp)):
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+    return lib
+
+
+# -fmad=false: no a * b + c contracted into one rounding, as the plain
+# version's separate elementwise ops round each product and sum.
+LIBRARY = CudaLibrary("trace", "trace.cu", _bind, flags=NVCC_FLAGS + ("-fmad=false",))
+LAUNCHES: Counter = Counter()
+# each kernel's last launch: (lanes, device int64 [exhausted, lane-steps, max lane-steps])
+LAST_STATS: Dict[str, tuple] = {}
+
+
+def _operands(name: str, tm: TraceMesh, t_idx: torch.Tensor, p: torch.Tensor, *lane_f):
+    """Validate and normalise a march's operands: every tensor on p's CUDA
+    device, p (N, 2) in the mesh tables' float type; returns (t_idx int64,
+    p, *lane_f) contiguous. The kernels trust the indices: t_idx below the
+    triangle count, as every caller builds them."""
+    dev, dtype = p.device, p.dtype
+    if dtype not in _TAGS:
+        raise TypeError(f"{name}: points must be float32 or float64, got {dtype}")
+    if tm.g.dtype != dtype:
+        raise TypeError(f"{name}: mesh tables are {tm.g.dtype}, points {dtype}")
+    if p.dim() != 2 or p.shape[1] != 2 or t_idx.shape != p.shape[:1]:
+        raise ValueError(f"{name}: t_idx (N,) and p (N, 2) expected, got "
+                         f"{tuple(t_idx.shape)} and {tuple(p.shape)}")
+    tensors = (tm.g, tm.opp, tm.xform_linear, tm.xform_const, t_idx, *lane_f)
+    if any(x.device != dev for x in tensors):
+        raise ValueError(f"{name}: operands on different devices "
+                         f"({sorted({str(x.device) for x in tensors + (p,)})})")
+    return (t_idx.to(torch.int64).contiguous(), p.contiguous(),
+            *(x.to(dtype).contiguous() for x in lane_f))
+
+
+def _call(kernel: str, dtype, dev, n: int, args) -> tuple:
+    """Launch ``kernel`` for ``n`` lanes on dev's current stream; returns
+    (t_out, p_out, stats)."""
+    t_out = torch.empty(n, dtype=torch.int64, device=dev)
+    p_out = torch.empty((n, 2), dtype=dtype, device=dev)
+    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    fn = getattr(LIBRARY.load(), f"{kernel}_{_TAGS[dtype]}")
+    with torch.cuda.device(dev):
+        err = fn(*args, t_out.data_ptr(), p_out.data_ptr(), stats.data_ptr(), stream_of(dev))
+    raise_on(err, kernel)
+    if n:
+        LAUNCHES[kernel] += 1
+    LAST_STATS[kernel] = (n, stats)
+    return t_out, p_out, stats
+
+
+def march(tm: TraceMesh, flow_time, t_idx: torch.Tensor, p: torch.Tensor, min_step: float,
+          budget: int, eps: float = 0.0, vfield: Optional[torch.Tensor] = None,
+          ce: Optional[torch.Tensor] = None) -> tuple:
+    """One launch of march_field (per-triangle ``vfield`` (T, 2)) or
+    march_whitney (Whitney coefficients ``ce`` (3T,)): every lane steps until
+    it stops or has taken ``budget`` steps. Returns (t, p, stats), stats the
+    device int64 [exhausted lanes, lane-steps, max lane-steps]; nothing is
+    read back."""
+    whitney = ce is not None
+    name = "march_whitney" if whitney else "march_field"
+    field = ce.reshape(-1) if whitney else vfield
+    n = p.shape[0]
+    ft = torch.as_tensor(flow_time, dtype=p.dtype, device=p.device)
+    if ft.numel() == 1:
+        ft, ft_stride = ft.reshape(1), 0
+    elif ft.shape == (n,):
+        ft_stride = 1
+    else:
+        raise ValueError(f"{name}: flow_time must be a scalar or (N,), got {tuple(ft.shape)}")
+    t_idx, p, field, ft, *g_inv = _operands(name, tm, t_idx, p, field, ft,
+                                            *((tm.g_inv,) if whitney else ()))
+    want = (3 * tm.n_triangles,) if whitney else (tm.n_triangles, 2)
+    if field.shape != want:
+        raise ValueError(f"{name}: field of {tuple(field.shape)}, {want} expected")
+    tables = [x.contiguous() for x in (tm.g, tm.opp, tm.xform_linear, tm.xform_const)]
+    args = [x.data_ptr() for x in (*tables, field)]
+    args += [g_inv[0].data_ptr() if whitney else 0] + [x.data_ptr() for x in (t_idx, p, ft)]
+    return _call(name, p.dtype, p.device, n,
+                 args + [ft_stride, n, float(min_step), float(eps), int(budget)])
+
+
+def march_exp(tm: TraceMesh, t_idx: torch.Tensor, p: torch.Tensor, v: torch.Tensor,
+              budget: int, eps: float = 0.0) -> tuple:
+    """One launch of the exp_map kernel; returns (t, p, stats) as ``march``."""
+    n = p.shape[0]
+    t_idx, p, v = _operands("exp_map", tm, t_idx, p, v)
+    if v.shape != p.shape:
+        raise ValueError(f"exp_map: v {tuple(v.shape)} for p {tuple(p.shape)}")
+    tables = [x.contiguous() for x in (tm.opp, tm.xform_linear, tm.xform_const)]
+    args = [x.data_ptr() for x in (*tables, t_idx, p, v)]
+    return _call("exp_map", p.dtype, p.device, n, args + [n, float(eps), int(budget)])
+
+
+def flow_field_trace(tm: TraceMesh, vfield: torch.Tensor, flow_time, t_idx: torch.Tensor,
+                     p: torch.Tensor, min_step: float, max_steps: int = 4096,
+                     eps: float = 0.0, with_diagnostics: bool = False):
+    """Batched FEM::RiemannianMesh::flow (FEM.inl:901-994) along the
+    per-triangle field ``vfield`` (T, 2) for ``flow_time`` (scalar or (N,),
+    sign = direction) from (t_idx (N,), p (N, 2)), at most ``max_steps``
+    steps a lane. Returns final (t_idx, p); lanes with t_idx < 0 pass
+    through unchanged. ``with_diagnostics`` appends the number of lanes
+    still live when the cap stopped them (the reference warns per lane on
+    cap exhaustion, FEM.inl:897,992). CUDA tensors: march_field."""
+    if not p.is_cuda:
+        return flow_field_trace_plain(tm, vfield, flow_time, t_idx, p, min_step, max_steps,
+                                      eps, with_diagnostics)
+    t1, p1, stats = march(tm, flow_time, t_idx, p, min_step, max_steps, eps, vfield=vfield)
+    flow_field_trace.launches += int(p.shape[0] > 0)
+    return (t1, p1, int(stats[0])) if with_diagnostics else (t1, p1)
+
+
+def whitney_flow_trace(tm: TraceMesh, ce: torch.Tensor, flow_time, t_idx: torch.Tensor,
+                       p: torch.Tensor, min_step: float, max_steps: int = 4096,
+                       eps: float = 0.0, with_diagnostics: bool = False):
+    """Batched FEM::RiemannianMesh::whitneyFlow (FEM.inl:998-1100): the march
+    of ``flow_field_trace`` along the Whitney field of the signed half-edge
+    coefficients ``ce`` (3T,), re-evaluated at the current point.
+    ``flow_time`` may be scalar or per-lane (N,); ``with_diagnostics``
+    appends the cap-exhausted lane count. CUDA tensors: march_whitney."""
+    if not p.is_cuda:
+        return whitney_flow_trace_plain(tm, ce, flow_time, t_idx, p, min_step, max_steps,
+                                        eps, with_diagnostics)
+    t1, p1, stats = march(tm, flow_time, t_idx, p, min_step, max_steps, eps, ce=ce)
+    whitney_flow_trace.launches += int(p.shape[0] > 0)
+    return (t1, p1, int(stats[0])) if with_diagnostics else (t1, p1)
+
+
+def exp_map(tm: TraceMesh, t_idx: torch.Tensor, p: torch.Tensor, v: torch.Tensor,
+            max_steps: int = 1024, eps: float = 0.0, with_diagnostics: bool = False):
+    """Batched FEM::RiemannianMesh::exp (FEM.inl:834-899): straight-line
+    geodesic carrying the displacement ``v`` (N, 2) of the starting chart
+    across charts. ``with_diagnostics`` appends the cap-exhausted lane
+    count. CUDA tensors: the exp_map kernel."""
+    if not p.is_cuda:
+        return exp_map_plain(tm, t_idx, p, v, max_steps, eps, with_diagnostics)
+    t1, p1, stats = march_exp(tm, t_idx, p, v, max_steps, eps)
+    exp_map.launches += int(p.shape[0] > 0)
+    return (t1, p1, int(stats[0])) if with_diagnostics else (t1, p1)
+
+
+flow_field_trace.launches = 0
+whitney_flow_trace.launches = 0
+exp_map.launches = 0
+
+
+def last_stats(kernel: str) -> dict:
+    """The last launch of ``kernel``: lanes, exhausted lanes, lane-steps and
+    the largest lane's steps (one read from the device)."""
+    n, stats = LAST_STATS[kernel]
+    exhausted, total, top = (int(v) for v in stats.cpu())
+    return dict(lanes=n, exhausted=exhausted, lane_steps=total, max_lane_steps=top)
+
+
+def _wrappers_and_plains():
+    from meshopticalflow_tpu_torch.kernels import advect
+
+    return ((flow_field_trace, whitney_flow_trace, exp_map,
+             advect.flow_field_trace_compacted),
+            (flow_field_trace_plain, whitney_flow_trace_plain, exp_map_plain,
+             advect.flow_field_trace_compacted_plain))
+
+
+def reset_counts() -> None:
+    """Zero the launch counts and the plain-on-CUDA call counts."""
+    wrappers, plains = _wrappers_and_plains()
+    for fn in wrappers:
+        fn.launches = 0
+    for fn in plains:
+        fn.cuda_calls = 0
+    LAUNCHES.clear()
+
+
+def counts() -> dict:
+    """Launches per kernel and per wrapper, and plain-version calls on CUDA
+    tensors."""
+    wrappers, plains = _wrappers_and_plains()
+    out = {k: LAUNCHES[k] for k in KERNELS}
+    out["by_wrapper"] = {fn.__name__: fn.launches for fn in wrappers}
+    out["plain_on_cuda"] = sum(fn.cuda_calls for fn in plains)
+    return out

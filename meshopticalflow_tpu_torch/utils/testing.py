@@ -3,7 +3,8 @@
 Jax-free: ``octa_sphere`` is a copy of meshopticalflow_tpu/utils/testing.py's
 (drift guard: tests/test_torch_host.py::HOST_COPIES); ``arpack_spectrum`` is
 the spectrum's reference on the card, where no JAX package is installed;
-``halo_test_system`` is the halo solvers' system on the card.
+``halo_test_system`` is the halo solvers' system on the card;
+``flat_grid`` and ``march_lanes`` are the march kernels' meshes and lanes.
 """
 
 from __future__ import annotations
@@ -37,6 +38,42 @@ def octa_sphere(subdiv: int = 2) -> Tuple[np.ndarray, np.ndarray]:
             new_tris += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
         tris = new_tris
     return np.array(tris, np.int32), np.stack(verts)
+
+
+def flat_grid(n: int = 8) -> Tuple[np.ndarray, np.ndarray]:
+    """A flat [0,1]^2 grid of n x n vertices in 3-D: a mesh with a boundary."""
+    xs, ys = np.meshgrid(np.linspace(0, 1, n), np.linspace(0, 1, n), indexing="ij")
+    pts = np.stack([xs.ravel(), ys.ravel(), np.zeros(n * n)], axis=1)
+    tris = []
+    for i in range(n - 1):
+        for j in range(n - 1):
+            a, b, c, d = i * n + j, (i + 1) * n + j, (i + 1) * n + j + 1, i * n + j + 1
+            tris += [[a, b, c], [a, c, d]]
+    return np.array(tris, np.int32), pts
+
+
+def march_lanes(opp: np.ndarray, n: int, seed: int = 3) -> dict:
+    """Lanes for the march kernels' tests on a mesh of half-edge opposites
+    ``opp`` (3T,), from a seed: a per-triangle field (every 7th triangle's
+    zero), the signed half-edge Whitney coefficients (3T,) of a random
+    1-form (Whitney.inl:28-62), starts (every 13th lane inactive, t = -1;
+    every 5th on chart edge 1, the next on chart edge 2), flow times of both
+    signs, exp_map displacements."""
+    from meshopticalflow_tpu_torch.models.whitney import edge_reduction
+
+    n_triangles = len(opp) // 3
+    rng = np.random.default_rng(seed)
+    red, sign, expanded = edge_reduction(np.asarray(opp))
+    field = rng.normal(scale=0.4, size=(n_triangles, 2))
+    field[::7] = 0.0
+    t0 = rng.integers(0, n_triangles, n)
+    t0[::13] = -1
+    p0 = rng.uniform(0.05, 0.45, (n, 2))
+    p0[::5, 0] = 0.0
+    p0[1::5, 1] = 0.0
+    ce = rng.normal(scale=0.4, size=len(expanded))[red] * sign
+    return dict(field=field, ce=ce, t0=t0, p0=p0, times=rng.uniform(-1.5, 1.5, n),
+                v=rng.normal(scale=0.8, size=(n, 2)))
 
 
 def arpack_spectrum(host, mesh, k: int):

@@ -542,3 +542,134 @@ def test_cuda_halo_mg_pcg_matches_cpu():
     assert lc == 0 and lg > 0
     assert sc.rel_residual < 1e-5 and sg.rel_residual < 1e-5
     assert np.abs(xg - xc).max() / np.abs(xc).max() <= 1e-5
+
+
+# -- the geodesic march (csrc/trace.cu) ----------------------------------------------
+# Each march kernel against its plain version on the card: end points equal
+# bit for bit (the kernels repeat the plain arithmetic op for op, built with
+# -fmad=false; CUDA's division and square root are IEEE in both), exhausted
+# counts equal.
+
+MARCH_FORMS = ["field", "field_scalar_time", "field_no_min_step", "compacted", "whitney",
+               "exp"]
+
+
+def _march_mesh(surface):
+    from meshopticalflow_tpu_torch.geometry.mesh import build_mesh
+    from meshopticalflow_tpu_torch.utils.testing import flat_grid, octa_sphere
+
+    tris, verts = octa_sphere(4) if surface == "sphere" else flat_grid(33)
+    return build_mesh(tris, vertices=verts, make_unit_area=surface == "sphere")
+
+
+def _march_calls(tm, lanes, dev, dtype):
+    from meshopticalflow_tpu_torch.kernels import advect, tracing
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a)).to(device=dev, dtype=dt)
+
+    t0, p0, field = t(lanes["t0"], torch.int64), t(lanes["p0"]), t(lanes["field"])
+    times = t(lanes["times"])
+    return {
+        "field": (tracing.flow_field_trace, tracing.flow_field_trace_plain,
+                  (tm, field, times, t0, p0, 1e-2, 4096, 0.0, True)),
+        "field_scalar_time": (tracing.flow_field_trace, tracing.flow_field_trace_plain,
+                              (tm, field, -0.7, t0, p0, 1e-2, 7, 0.0, True)),
+        "field_no_min_step": (tracing.flow_field_trace, tracing.flow_field_trace_plain,
+                              (tm, field, times, t0, p0, 0.0, 4096, 0.0, True)),
+        "compacted": (advect.flow_field_trace_compacted,
+                      advect.flow_field_trace_compacted_plain,
+                      (tm, field, times, t0, p0, 1e-2, 16, 2)),
+        "whitney": (tracing.whitney_flow_trace, tracing.whitney_flow_trace_plain,
+                    (tm, t(lanes["ce"]), times, t0, p0, 1e-2, 4096, 0.0, True)),
+        "exp": (tracing.exp_map, tracing.exp_map_plain,
+                (tm, t0, p0, t(lanes["v"]), 1024, 0.0, True)),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("surface", ["sphere", "flat"])
+@pytest.mark.parametrize("form", MARCH_FORMS)
+def test_cuda_march_matches_plain(form, surface, dtype):
+    _require_card()
+    from meshopticalflow_tpu_torch.kernels import tracing
+    from meshopticalflow_tpu_torch.utils.testing import march_lanes
+
+    mesh = _march_mesh(surface)
+    tm = tracing.make_trace_mesh(mesh, dtype, "cuda")
+    lanes = march_lanes(mesh.opp, 20000, seed=5)
+    wrapper, plain, args = _march_calls(tm, lanes, "cuda", dtype)[form]
+    tracing.reset_counts()
+    got = wrapper(*args)
+    counts = tracing.counts()
+    assert counts["by_wrapper"][wrapper.__name__] == 1 and counts["plain_on_cuda"] == 0
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0])
+    assert torch.equal(got[1], ref[1])
+    assert got[2] == ref[2]
+    kernel = "exp_map" if form == "exp" else "march_whitney" if form == "whitney" \
+        else "march_field"
+    stats = tracing.last_stats(kernel)
+    assert stats["lanes"] == 20000 and stats["exhausted"] == got[2]
+    assert 0 < stats["max_lane_steps"] <= stats["lane_steps"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", MARCH_FORMS)
+def test_cuda_march_no_lanes(form):
+    _require_card()
+    from meshopticalflow_tpu_torch.kernels import tracing
+    from meshopticalflow_tpu_torch.utils.testing import march_lanes
+
+    mesh = _march_mesh("flat")
+    tm = tracing.make_trace_mesh(mesh, torch.float32, "cuda")
+    lanes = {k: v[:0] if k in ("t0", "p0", "times", "v") else v
+             for k, v in march_lanes(mesh.opp, 10).items()}
+    wrapper, _, args = _march_calls(tm, lanes, "cuda", torch.float32)[form]
+    tracing.reset_counts()
+    out = wrapper(*args)
+    assert out[0].shape == (0,) and out[1].shape == (0, 2) and out[2] == 0
+    assert all(tracing.counts()[k] == 0 for k in tracing.KERNELS)
+
+
+@pytest.mark.gpu
+def test_cuda_march_noncontiguous_points():
+    _require_card()
+    from meshopticalflow_tpu_torch.kernels import tracing
+    from meshopticalflow_tpu_torch.utils.testing import march_lanes
+
+    mesh = _march_mesh("sphere")
+    tm = tracing.make_trace_mesh(mesh, torch.float32, "cuda")
+    lanes = march_lanes(mesh.opp, 4000)
+    field = torch.as_tensor(lanes["field"]).float().cuda()
+    t0 = torch.as_tensor(lanes["t0"]).cuda()
+    wide = torch.zeros((4000, 4), dtype=torch.float32, device="cuda")
+    wide[:, 1:3] = torch.as_tensor(lanes["p0"]).float()
+    p0 = wide[:, 1:3]
+    assert not p0.is_contiguous()
+    got = tracing.flow_field_trace(tm, field, 0.5, t0, p0, 1e-2)
+    ref = tracing.flow_field_trace_plain(tm, field, 0.5, t0, p0.contiguous(), 1e-2)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("operand", ["field", "t_idx", "mesh"])
+def test_cuda_march_refuses_mixed_devices(operand):
+    _require_card()
+    from meshopticalflow_tpu_torch.kernels import tracing
+    from meshopticalflow_tpu_torch.utils.testing import march_lanes
+
+    mesh = _march_mesh("flat")
+    lanes = march_lanes(mesh.opp, 100)
+    tm = tracing.make_trace_mesh(mesh, torch.float32, "cpu" if operand == "mesh" else "cuda")
+    field = torch.as_tensor(lanes["field"]).float()
+    t0 = torch.as_tensor(lanes["t0"])
+    p0 = torch.as_tensor(lanes["p0"]).float().cuda()
+    if operand != "field":
+        field = field.cuda()
+    if operand != "t_idx":
+        t0 = t0.cuda()
+    with pytest.raises(ValueError, match="different devices"):
+        tracing.flow_field_trace(tm, field, 0.5, t0, p0, 1e-2)
