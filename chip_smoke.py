@@ -7,7 +7,9 @@ any failure raises, so the run exits non-zero and prints no final ok line.
 
   1. the card's name and power limit; refuse to run without a GPU;
   2. build the three CUDA libraries from the checkout's sources (SpMV,
-     probes, the geodesic march; one nvcc each, started together) and,
+     probes, the geodesic march; one nvcc each, started together, with a
+     fourth beside them: PR 13's design of the march kernel, for phase
+     7m's comparison) and,
      beside them, the native host library
      (native/meshhost.cpp, g++) into meshopticalflow_tpu_torch/_build/; every
      texture draw below must rasterize with it (``init_profile``'s
@@ -126,8 +128,12 @@ any failure raises, so the run exits non-zero and prints no final ok line.
      tfield, float32 and float64) and halfway march (every texel lane of
      both 2048^2 textures), the init's exp remap of phase 6's texels, and
      phase 6c's composed Whitney marches; every lane's t and p equal bit for
-     bit and the exhausted counts equal; lanes, lane-steps, the kernel's
-     device time, the plain march's, the byte bound;
+     bit and the exhausted counts equal; lanes, lane-steps, warp-step slots
+     and SIMT efficiency, the kernel's device time, the plain march's, the
+     byte bound; march_field and march_whitney also timed in turns with PR
+     13's design of their kernel (march_sweep.py's "pr13" case, built in
+     phase 2 and held to the plain march too), which the shipped kernel
+     must not trail at the level trace and the halfway;
   8. the result lines.
 
 Every phase that drives a path (3, 5, 6, 6b, 6e, 6f, 6c, 6d, 6g) sets the
@@ -2428,12 +2434,29 @@ def _march_bytes(kernel: str, tm, n: int, lane_floats: int, elem: int, field_row
     return lanes + min(tables, lane_steps * per_step)
 
 
+MARCH_TURN_ROUNDS = 2           # rounds of (kernel, PR 13's, PR 13's, kernel)
+
+
+def _with_library(tracing, library, fn):
+    """fn with kernels/tracing.py's march library swapped for ``library``."""
+    def run():
+        shipped = tracing.LIBRARY
+        tracing.LIBRARY = library
+        try:
+            return fn()
+        finally:
+            tracing.LIBRARY = shipped
+    return run
+
+
 def _march_case(tracing, kernel: str, label: str, call, plain, launch, bytes_of,
-                dtype_name: str, plain_reps: int) -> dict:
+                dtype_name: str, plain_reps: int, earlier=None) -> dict:
     """Hold one march to its plain version: every lane's t and p equal bit
     for bit and the exhausted counts equal, then time the kernel (CUDA
     events, ``launch`` = the wrapper's launch without its read-back) and
-    the plain version (wall clock to a synchronize)."""
+    the plain version (wall clock to a synchronize). With ``earlier`` (the
+    library of PR 13's design), that design too is held to the plain march
+    and timed in turns with the kernel."""
     import torch
 
     got = call()
@@ -2446,33 +2469,62 @@ def _march_case(tracing, kernel: str, label: str, call, plain, launch, bytes_of,
     err = float((got[1] - ref[1]).abs().max()) if got[1].numel() else 0.0
     rec = dict(name=kernel, case=label, dtype=dtype_name, lanes=stats["lanes"],
                lane_steps=stats["lane_steps"], max_lane_steps=stats["max_lane_steps"],
+               warp_slots=stats["warp_slots"],
+               simt_efficiency=stats["lane_steps"] / max(stats["warp_slots"], 1),
                exhausted=got[2], plain_exhausted=ref[2], lanes_differing=differ,
                t_differing=int(t_diff.sum()), max_abs_err=err)
     if differ or got[2] != ref[2] or stats["exhausted"] != got[2]:
         raise RuntimeError(f"{kernel} ({label}): {differ} of {stats['lanes']} lanes differ "
                            f"from the plain march (t {rec['t_differing']}, max |dp| {err:.3e});"
                            f" exhausted {got[2]} against {ref[2]}")
-    rec["ms"] = median_ms(launch, reps=10, inner=2)
+    if earlier is None:
+        rec["ms"] = median_ms(launch, reps=10, inner=2)
+    else:
+        old_launch = _with_library(tracing, earlier, launch)
+        t1, p1, _ = old_launch()
+        old = tracing.last_stats(kernel)
+        old_differ = int(((t1 != ref[0]) | (p1 != ref[1]).any(dim=1)).sum())
+        if old_differ or old["exhausted"] != ref[2] or old["lane_steps"] != stats["lane_steps"]:
+            raise RuntimeError(f"{kernel} ({label}): PR 13's design differs from the plain "
+                               f"march in {old_differ} lanes, exhausted {old['exhausted']}, "
+                               f"lane-steps {old['lane_steps']} against {stats['lane_steps']}")
+        new_ms, old_ms = [], []
+        for _ in range(MARCH_TURN_ROUNDS):
+            new_ms.append(median_ms(launch, reps=10, inner=2))
+            old_ms += [median_ms(old_launch, reps=10, inner=2) for _ in range(2)]
+            new_ms.append(median_ms(launch, reps=10, inner=2))
+        rec.update(ms=float(np.median(new_ms)), ms_rounds=new_ms,
+                   pr13_ms=float(np.median(old_ms)), pr13_ms_rounds=old_ms,
+                   pr13_warp_slots=old["warp_slots"],
+                   pr13_simt_efficiency=old["lane_steps"] / max(old["warp_slots"], 1))
     rec["plain_ms"] = _wall_ms(plain, reps=plain_reps)
     flops = MARCH_OPS_PER_STEP[kernel] * stats["lane_steps"]
     rec["bound_ms"], rec["bound_by"] = bound(bytes_of(stats["lane_steps"]), flops, dtype_name)
     rec["library_ms"] = None          # no one PyTorch call computes a march
+    old = ""
+    if earlier is not None:
+        old = (f"; PR 13's design in turns {rec['pr13_ms'] * 1e3:.2f} us "
+               f"[{min(rec['pr13_ms_rounds']) * 1e3:.2f}-{max(rec['pr13_ms_rounds']) * 1e3:.2f}]"
+               f", SIMT efficiency {rec['pr13_simt_efficiency']:.3f}, equal bit for bit")
     phase("7m", f"{kernel} ({label}, {dtype_name}): {stats['lanes']} lanes equal to the plain "
                 f"march bit for bit, exhausted {got[2]}; lane-steps {stats['lane_steps']} "
-                f"(max {stats['max_lane_steps']}); kernel {rec['ms']:.3f} ms, plain "
-                f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms'] * 1e3:.2f} us "
-                f"({rec['bound_by']})")
+                f"(max {stats['max_lane_steps']}), warp-step slots {stats['warp_slots']}, "
+                f"SIMT efficiency {rec['simt_efficiency']:.3f}; kernel {rec['ms'] * 1e3:.2f} us"
+                f", plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms'] * 1e3:.2f} us "
+                f"({rec['bound_by']}, share {rec['bound_ms'] / rec['ms']:.3f})" + old)
     return rec
 
 
-def check_march(prob, composed) -> list:
+def check_march(prob, composed, earlier) -> list:
     """Phase 7m: each march kernel on the card against its plain version at
     the main path's lanes: the multigrid cell's level trace (its 2T
     barycentre lanes at -1/2 and +1/2 along phase 6's last tfield, float32,
     then in float64), the halfway march (every texel lane of both 2048^2
     textures), the init's exp remap (phase 6's out-of-triangle texels), and
     the composed tracker's Whitney marches (phase 6c's fields, last to
-    first, from the barycentres)."""
+    first, from the barycentres). march_field and march_whitney are timed
+    in turns with ``earlier``, PR 13's design of their kernel; the shipped
+    kernel must be no slower than it at the level trace and the halfway."""
     import torch
     from meshopticalflow_tpu_torch.flow.pipeline import _halfway_lanes
     from meshopticalflow_tpu_torch.kernels import advect, tracing
@@ -2494,7 +2546,7 @@ def check_march(prob, composed) -> list:
             lambda: tracing.march(tmx, times, t0, p0, min_step, budget, vfield=field),
             lambda steps: _march_bytes("march_field", tmx, t0.shape[0], 3, elem,
                                        2 * tmx.n_triangles, steps),
-            dtype_name, plain_reps))
+            dtype_name, plain_reps, earlier))
 
     t_count = tm.n_triangles
     t0 = torch.arange(t_count, device=dev).repeat(2)
@@ -2538,8 +2590,14 @@ def check_march(prob, composed) -> list:
             lambda: tracing.march(ctm, length, t, p, c_step, c_max, ce=ce),
             lambda steps: _march_bytes("march_whitney", ctm, t.shape[0], 2, 4,
                                        3 * ctm.n_triangles, steps),
-            "float32", 5))
+            "float32", 5, earlier))
         t, p = tracing.whitney_flow_trace(ctm, ce, length, t, p, c_step, c_max)
+    slower = [f"{r['case']} {r['dtype']}: {r['ms'] * 1e3:.2f} us against "
+              f"{r['pr13_ms'] * 1e3:.2f} us" for r in rows
+              if r["name"] == "march_field" and r["dtype"] == "float32"
+              and r["ms"] > r["pr13_ms"]]
+    if slower:
+        raise RuntimeError("march_field trails PR 13's design: " + "; ".join(slower))
     return rows
 
 
@@ -2618,6 +2676,7 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
     import torch
 
     sys.path.insert(0, REPO)
+    import march_sweep
     from meshopticalflow_tpu_torch import native
     from meshopticalflow_tpu_torch.kernels import build, probes, spmv, tracing
 
@@ -2626,9 +2685,11 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.time()
+    earlier_march = march_sweep.case_library("pr13")     # PR 13's march kernel
     with ThreadPoolExecutor(1) as pool:
         host_lib = pool.submit(native.build)      # g++, beside the nvcc builds
-        libs = build.build_all([spmv.LIBRARY, probes.LIBRARY, tracing.LIBRARY])
+        libs = build.build_all([spmv.LIBRARY, probes.LIBRARY, tracing.LIBRARY,
+                                earlier_march])
         libs["meshhost"] = host_lib.result()
     spmv.LIBRARY.load()
     probes.LIBRARY.load()
@@ -2690,7 +2751,7 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
     spmv_report = check_spmv(spmv, operators, rates["l2_copy_tb_s"], draws)
     del operators, spectrum_ops
     record_halo_form(spmv_report, draws["halo"])
-    march_report = check_march(prob, composed)
+    march_report = check_march(prob, composed, earlier_march)
     del composed
     split = iteration_split(prob)
     del prob
@@ -2721,7 +2782,8 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
             lanes=r["lanes"], lane_steps=r["lane_steps"], max_lane_steps=r["max_lane_steps"],
-            exhausted=r["exhausted"],
+            exhausted=r["exhausted"], simt_efficiency=r["simt_efficiency"],
+            **{k: r[k] for k in ("pr13_ms", "pr13_simt_efficiency") if k in r},
             **{f"launches_{tag}_path": draws[tag]["launches"]["march"][name]
                for tag in ("multigrid", "jacobi", "conformal", "connection", "xla", "mf",
                            "halo", "xla_group", "warm_init", "tracking", "spectrum",

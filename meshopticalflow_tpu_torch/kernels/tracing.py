@@ -17,14 +17,15 @@ barycentres) at once.
 
 On CUDA tensors ``flow_field_trace``, ``whitney_flow_trace`` and ``exp_map``
 (and kernels/advect.py:flow_field_trace_compacted) launch the hand-written
-kernels of ``csrc/trace.cu`` (march_field, march_whitney, exp_map; one
-thread per lane, marching to its own end or step budget), or raise; the
-reference package runs these marches as XLA while_loops with no Pallas
-kernel. On CPU tensors they run their plain PyTorch versions (``*_plain``),
-whose arithmetic the kernels repeat op for op, so that end points agree bit
-for bit. Each wrapper counts its launches in ``<wrapper>.launches``
-(``LAUNCHES`` by kernel); each plain version counts the calls it gets with
-CUDA tensors in ``<plain>.cuda_calls``. ``gradient_flow_trace`` and
+kernels of ``csrc/trace.cu`` (one thread per lane, marching to its own end
+or step budget; march_field and march_whitney read one row of
+``march_rows`` a crossing), or raise; the reference package runs these
+marches as XLA while_loops with no Pallas kernel. On CPU tensors they run
+their plain PyTorch versions (``*_plain``), whose arithmetic the kernels
+repeat op for op, so that end points agree bit for bit. Each wrapper counts
+its launches in ``<wrapper>.launches`` (``LAUNCHES`` by kernel); each plain
+version counts the calls it gets with CUDA tensors in
+``<plain>.cuda_calls``. ``gradient_flow_trace`` and
 ``flow_field_trace_distance`` are on no CLI's path and stay plain PyTorch.
 
 A plain step is a fixed sequence of elementwise tensor ops plus five
@@ -69,6 +70,8 @@ class TraceMesh:
 
 
 def make_trace_mesh(mesh: HostMesh, dtype=torch.float32, device="cpu") -> TraceMesh:
+    """The mesh's tracing tables on ``device``; the march kernels' rows are
+    packed from them at the first CUDA march (``march_rows``)."""
     def dev(a, dt):
         return torch.as_tensor(np.ascontiguousarray(a)).to(device=device, dtype=dt)
 
@@ -546,7 +549,7 @@ KERNELS = ("march_field", "march_whitney", "exp_map")
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i64, f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
-    march = [p, p, p, p, p, p, p, p, p, i64, i64, f64, f64, i64, p, p, p, p]
+    march = [p, p, p, p, p, p, p, p, p, p, i64, i64, f64, f64, i64, p, p, p, p]
     exp = [p, p, p, p, p, p, i64, f64, i64, p, p, p, p]
     for tag in _TAGS.values():
         for name, args in ((f"march_field_{tag}", march), (f"march_whitney_{tag}", march),
@@ -561,8 +564,47 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 # version's separate elementwise ops round each product and sum.
 LIBRARY = CudaLibrary("trace", "trace.cu", _bind, flags=NVCC_FLAGS + ("-fmad=false",))
 LAUNCHES: Counter = Counter()
-# each kernel's last launch: (lanes, device int64 [exhausted, lane-steps, max lane-steps])
+# each kernel's last launch: (lanes, device int64 [exhausted, lane-steps, max
+# lane-steps, warp-step slots])
 LAST_STATS: Dict[str, tuple] = {}
+# a row's values (l0 l1 l2 l3, c0 c1, the opposite triangle's g00 g01 g11,
+# the opposite half-edge as int32, padding) and the int32 word of the
+# opposite: 48 bytes in float32, 80 in float64 (csrc/trace.cu:Row)
+ROW_LAYOUT = {torch.float32: (12, 9), torch.float64: (10, 18)}
+
+
+def march_rows(tm: TraceMesh) -> torch.Tensor:
+    """The march kernels' per-half-edge rows (3T, width) in the tables'
+    float type (``ROW_LAYOUT``): the transition map (4 values), its offset
+    (2), the opposite triangle's metric g00 g01 g11 (zero on the boundary)
+    and the opposite half-edge as int32, so a crossing reads one row and
+    nothing after it. Packed once a ``TraceMesh`` and kept on it; raises
+    where 3T does not fit int32."""
+    rows = tm.__dict__.get("_march_rows")
+    if rows is not None:
+        return rows
+    half_edges = tm.opp.shape[0]
+    if half_edges >= 2 ** 31:
+        raise ValueError(f"march rows: {half_edges} half-edges; the march kernels index "
+                         f"them as int32 (3T < 2^31)")
+    dtype = tm.g.dtype
+    if dtype not in ROW_LAYOUT:
+        raise TypeError(f"march rows: mesh tables must be float32 or float64, got {dtype}")
+    width, opp_word = ROW_LAYOUT[dtype]
+    rows = torch.zeros((half_edges, width), dtype=dtype, device=tm.opp.device)
+    rows[:, 0:4] = tm.xform_linear.reshape(-1, 4)
+    rows[:, 4:6] = tm.xform_const.reshape(-1, 2)
+    g = tm.g.reshape(-1, 4)[torch.div(tm.opp.clamp(min=0), 3, rounding_mode="floor")]
+    rows[:, 6:9] = torch.where((tm.opp >= 0)[:, None], g[:, [0, 1, 3]], 0.0)
+    rows.view(torch.int32)[:, opp_word] = tm.opp.to(torch.int32)
+    tm.__dict__["_march_rows"] = rows
+    return rows
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a copy of it where its data is not aligned to two values
+    (the march kernels load the field and the metrics as 2-vectors)."""
+    return x if x.data_ptr() % (2 * x.element_size()) == 0 else x.clone()
 
 
 def _operands(name: str, tm: TraceMesh, t_idx: torch.Tensor, p: torch.Tensor, *lane_f):
@@ -591,7 +633,7 @@ def _call(kernel: str, dtype, dev, n: int, args) -> tuple:
     (t_out, p_out, stats)."""
     t_out = torch.empty(n, dtype=torch.int64, device=dev)
     p_out = torch.empty((n, 2), dtype=dtype, device=dev)
-    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    stats = torch.zeros(4, dtype=torch.int64, device=dev)
     fn = getattr(LIBRARY.load(), f"{kernel}_{_TAGS[dtype]}")
     with torch.cuda.device(dev):
         err = fn(*args, t_out.data_ptr(), p_out.data_ptr(), stats.data_ptr(), stream_of(dev))
@@ -608,8 +650,8 @@ def march(tm: TraceMesh, flow_time, t_idx: torch.Tensor, p: torch.Tensor, min_st
     """One launch of march_field (per-triangle ``vfield`` (T, 2)) or
     march_whitney (Whitney coefficients ``ce`` (3T,)): every lane steps until
     it stops or has taken ``budget`` steps. Returns (t, p, stats), stats the
-    device int64 [exhausted lanes, lane-steps, max lane-steps]; nothing is
-    read back."""
+    device int64 [exhausted lanes, lane-steps, max lane-steps, warp-step
+    slots]; nothing is read back."""
     whitney = ce is not None
     name = "march_whitney" if whitney else "march_field"
     field = ce.reshape(-1) if whitney else vfield
@@ -626,7 +668,10 @@ def march(tm: TraceMesh, flow_time, t_idx: torch.Tensor, p: torch.Tensor, min_st
     want = (3 * tm.n_triangles,) if whitney else (tm.n_triangles, 2)
     if field.shape != want:
         raise ValueError(f"{name}: field of {tuple(field.shape)}, {want} expected")
-    tables = [x.contiguous() for x in (tm.g, tm.opp, tm.xform_linear, tm.xform_const)]
+    field = field if whitney else _aligned(field)
+    g_inv = [_aligned(x) for x in g_inv]
+    tables = [march_rows(tm), _aligned(tm.g.contiguous())] + [
+        x.contiguous() for x in (tm.opp, tm.xform_linear, tm.xform_const)]
     args = [x.data_ptr() for x in (*tables, field)]
     args += [g_inv[0].data_ptr() if whitney else 0] + [x.data_ptr() for x in (t_idx, p, ft)]
     return _call(name, p.dtype, p.device, n,
@@ -698,11 +743,14 @@ exp_map.launches = 0
 
 
 def last_stats(kernel: str) -> dict:
-    """The last launch of ``kernel``: lanes, exhausted lanes, lane-steps and
-    the largest lane's steps (one read from the device)."""
+    """The last launch of ``kernel``: lanes, exhausted lanes, lane-steps,
+    the largest lane's steps and the warp-step slots (32 x the loop
+    iterations each warp ran; lane-steps / slots is the SIMT efficiency),
+    in one read from the device."""
     n, stats = LAST_STATS[kernel]
-    exhausted, total, top = (int(v) for v in stats.cpu())
-    return dict(lanes=n, exhausted=exhausted, lane_steps=total, max_lane_steps=top)
+    exhausted, total, top, slots = (int(v) for v in stats.cpu())
+    return dict(lanes=n, exhausted=exhausted, lane_steps=total, max_lane_steps=top,
+                warp_slots=slots)
 
 
 def _wrappers_and_plains():

@@ -613,7 +613,8 @@ def test_cuda_march_matches_plain(form, surface, dtype):
         else "march_field"
     stats = tracing.last_stats(kernel)
     assert stats["lanes"] == 20000 and stats["exhausted"] == got[2]
-    assert 0 < stats["max_lane_steps"] <= stats["lane_steps"]
+    assert 0 < stats["max_lane_steps"] <= stats["lane_steps"] <= stats["warp_slots"]
+    assert stats["warp_slots"] % 32 == 0
 
 
 @pytest.mark.gpu
@@ -632,6 +633,10 @@ def test_cuda_march_no_lanes(form):
     out = wrapper(*args)
     assert out[0].shape == (0,) and out[1].shape == (0, 2) and out[2] == 0
     assert all(tracing.counts()[k] == 0 for k in tracing.KERNELS)
+    kernel = "exp_map" if form == "exp" else "march_whitney" if form == "whitney" \
+        else "march_field"
+    assert tracing.last_stats(kernel) == dict(lanes=0, exhausted=0, lane_steps=0,
+                                              max_lane_steps=0, warp_slots=0)
 
 
 @pytest.mark.gpu
@@ -673,3 +678,103 @@ def test_cuda_march_refuses_mixed_devices(operand):
         t0 = t0.cuda()
     with pytest.raises(ValueError, match="different devices"):
         tracing.flow_field_trace(tm, field, 0.5, t0, p0, 1e-2)
+
+
+# -- the march kernels at the edges of their launch: lane lengths, lane counts -------
+# A warp whose lanes end after 1 step or at the budget, lane counts that are
+# no multiple of a warp or of a resident grid, and far more lanes than
+# resident threads must all equal the plain march lane for lane, with its
+# exhausted count, lane-steps and longest lane; the warp-step slots count
+# 32 a warp iteration.
+
+def _plain_steps(tm, field, ce, times, t0, p0, min_step, budget):
+    """The plain march's steps a lane (tracing._flow_step until the lane
+    stops or has taken ``budget`` steps): (t, p, exhausted, steps (N,))."""
+    from meshopticalflow_tpu_torch.kernels import tracing
+
+    tab = tracing._tables(tm, field, ce)
+    state = tracing._flow_init(tab, times, t0, p0, min_step)
+    steps = torch.zeros(t0.shape[0], dtype=torch.int64, device=t0.device)
+    for _ in range(budget):
+        if not bool(state["active"].any()):
+            break
+        steps += state["active"].to(torch.int64)
+        state = tracing._flow_step(state, tab, min_step, 0.0)
+    t1, p1 = tracing._finish(state, t0, p0)
+    return t1, p1, int(state["active"].sum()), steps
+
+
+def _unequal_lanes(mesh, n, dtype, seed=11):
+    """Lanes alternating, within every warp, flow times that end in one step
+    (1e-7) and times no budget reaches (1e6 on the closed sphere, marched
+    without re-reading the field, so no reversal stops them), with inactive
+    lanes (t = -1) among them."""
+    from meshopticalflow_tpu_torch.utils.testing import march_lanes
+
+    lanes = march_lanes(mesh.opp, n, seed=seed)
+    times = np.where(np.arange(n) % 2 == 0, 1e-7, 1e6) * np.sign(lanes["times"])
+    dev = "cuda"
+    return (torch.as_tensor(lanes["t0"]).to(dev),
+            torch.as_tensor(lanes["p0"]).to(device=dev, dtype=dtype),
+            torch.as_tensor(times).to(device=dev, dtype=dtype),
+            torch.as_tensor(lanes["field"]).to(device=dev, dtype=dtype),
+            torch.as_tensor(lanes["ce"]).to(device=dev, dtype=dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("form", ["field", "whitney"])
+def test_cuda_march_unequal_lanes_in_one_warp(form, dtype):
+    _require_card()
+    from meshopticalflow_tpu_torch.kernels import tracing
+
+    mesh = _march_mesh("sphere")
+    tm = tracing.make_trace_mesh(mesh, dtype, "cuda")
+    t0, p0, times, field, ce = _unequal_lanes(mesh, 4992, dtype)
+    budget = 300
+    kw = dict(vfield=field) if form == "field" else dict(ce=ce)
+    got = tracing.march(tm, times, t0, p0, 0.0, budget, **kw)
+    stats = tracing.last_stats("march_field" if form == "field" else "march_whitney")
+    ref_t, ref_p, ref_exhausted, ref_steps = _plain_steps(
+        tm, field if form == "field" else None, ce if form == "whitney" else None, times,
+        t0, p0, 0.0, budget)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref_t) and torch.equal(got[1], ref_p)
+    assert stats["exhausted"] == ref_exhausted > 0
+    assert stats["lane_steps"] == int(ref_steps.sum())
+    assert stats["max_lane_steps"] == int(ref_steps.max()) == budget
+    warps = ref_steps.reshape(-1, 32)          # each warp's first 32 lanes
+    assert bool(((warps == 1).any(dim=1) & (warps == budget).any(dim=1)).any())
+    assert stats["lane_steps"] <= stats["warp_slots"] and stats["warp_slots"] % 32 == 0
+
+
+def _resident_threads():
+    return torch.cuda.get_device_properties(0).multi_processor_count * 2048
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 31, 33, 4099, "resident+7", "3*resident+5"])
+def test_cuda_march_lane_counts(lanes):
+    _require_card()
+    from meshopticalflow_tpu_torch.kernels import tracing
+    from meshopticalflow_tpu_torch.utils.testing import march_lanes
+
+    n = {"resident+7": _resident_threads() + 7,
+         "3*resident+5": 3 * _resident_threads() + 5}.get(lanes, lanes)
+    mesh = _march_mesh("flat")
+    tm = tracing.make_trace_mesh(mesh, torch.float32, "cuda")
+    lanes_np = march_lanes(mesh.opp, n, seed=13)
+    t0 = torch.as_tensor(lanes_np["t0"]).cuda()
+    p0 = torch.as_tensor(lanes_np["p0"]).float().cuda()
+    times = torch.as_tensor(lanes_np["times"]).float().cuda()
+    field = torch.as_tensor(lanes_np["field"]).float().cuda()
+    got = tracing.march(tm, times, t0, p0, 1e-2, 4096, vfield=field)
+    stats = tracing.last_stats("march_field")
+    ref_t, ref_p, ref_exhausted, ref_steps = _plain_steps(tm, field, None, times, t0, p0,
+                                                          1e-2, 4096)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref_t) and torch.equal(got[1], ref_p)
+    assert stats["lanes"] == n and stats["exhausted"] == ref_exhausted
+    assert stats["lane_steps"] == int(ref_steps.sum())
+    assert stats["max_lane_steps"] == int(ref_steps.max())
+    assert stats["lane_steps"] <= stats["warp_slots"] and stats["warp_slots"] % 32 == 0

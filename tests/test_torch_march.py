@@ -394,3 +394,91 @@ def test_library_path_follows_its_flags():
     other = build.CudaLibrary(lib.stem, lib.source.name, t_tracing._bind)
     assert same.path() == lib.path()
     assert other.path() != lib.path()
+
+
+# -- the march kernels' rows and stats -------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_march_rows_equal_their_tables(surface, dtype):
+    tm = t_tracing.make_trace_mesh(surface["mesh"], dtype)
+    rows = t_tracing.march_rows(tm)
+    n = 3 * tm.n_triangles
+    width, opp_word = t_tracing.ROW_LAYOUT[dtype]
+    assert rows.shape == (n, width) and rows.dtype == dtype
+    assert rows.element_size() * width == (48 if dtype == torch.float32 else 80)
+    assert torch.equal(rows[:, 0:4], tm.xform_linear.reshape(-1, 4))
+    assert torch.equal(rows[:, 4:6], tm.xform_const.reshape(-1, 2))
+    inner = tm.opp >= 0
+    assert bool((~inner).any()) == (surface["name"] == "flat")      # boundary rows
+    g = tm.g.reshape(-1, 4)[tm.opp[inner] // 3]                     # the opposite's metric
+    assert torch.equal(rows[inner, 6:9], g[:, [0, 1, 3]])
+    assert not rows[~inner, 6:9].any()
+    words = rows.view(torch.int32)
+    assert torch.equal(words[:, opp_word].to(torch.int64), tm.opp)
+    rest = torch.ones(words.shape[1], dtype=torch.bool)
+    rest[:opp_word + 1] = False
+    assert not words[:, rest].any()                                # padding is zero
+    assert t_tracing.march_rows(tm) is rows                        # packed once a mesh
+
+
+def _shape_only_mesh(n_triangles: int) -> t_tracing.TraceMesh:
+    """A TraceMesh of meta tensors: shapes, no storage."""
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    n = 3 * n_triangles
+    return t_tracing.TraceMesh(
+        triangles=meta(n_triangles, 3, dtype=torch.int64), g=meta(n_triangles, 2, 2),
+        g_inv=meta(n_triangles, 2, 2), area=meta(n_triangles),
+        opp=meta(n, dtype=torch.int64), xform_linear=meta(n, 2, 2), xform_const=meta(n, 2))
+
+
+@pytest.mark.parametrize("n_triangles", [715_827_883, 10 ** 9])
+def test_march_rows_refuse_half_edges_past_int32(n_triangles):
+    assert 3 * n_triangles >= 2 ** 31
+    with pytest.raises(ValueError, match="int32"):
+        t_tracing.march_rows(_shape_only_mesh(n_triangles))
+
+
+def test_march_rows_take_half_edges_below_int32():
+    rows = t_tracing.march_rows(_shape_only_mesh(715_827_882))
+    assert rows.shape == (3 * 715_827_882, 12) and rows.is_meta
+
+
+def test_last_stats_reports_warp_slots():
+    saved = t_tracing.LAST_STATS.get("march_field")
+    t_tracing.LAST_STATS["march_field"] = (7, torch.tensor([1, 50, 9, 96]))
+    try:
+        assert t_tracing.last_stats("march_field") == dict(
+            lanes=7, exhausted=1, lane_steps=50, max_lane_steps=9, warp_slots=96)
+    finally:
+        if saved is None:
+            del t_tracing.LAST_STATS["march_field"]
+        else:
+            t_tracing.LAST_STATS["march_field"] = saved
+
+
+# -- march_sweep.py's cases: built from csrc/trace.cu by text replacement ----------
+
+def _march_sweep():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "march_sweep.py"
+    spec = importlib.util.spec_from_file_location("march_sweep", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("case", list(_march_sweep().CASES))
+def test_march_sweep_case_applies_to_trace_cu(case):
+    """Every lever's text is in csrc/trace.cu once, so each case (and the
+    "pr13" case that chip_smoke.py builds) still builds from the source."""
+    sweep = _march_sweep()
+    src = sweep.case_source(sweep.CASES[case])
+    shipped = (build.CSRC / "trace.cu").read_text()
+    assert (src == shipped) == (case == "shipped")
+    for name in ("march_field_f32", "march_field_f64", "march_whitney_f32",
+                 "march_whitney_f64", "exp_map_f32", "exp_map_f64"):
+        assert src.count(f"({name}, ") + src.count(f"int {name}(") == 1

@@ -306,10 +306,11 @@ _FOREIGN_IMPORT = re.compile(
 
 
 def test_port_sources_import_no_jax():
-    """Every source of the port, and chip_smoke.py, scanned for an import of
-    jax, flax or the JAX package (lazy imports inside functions included)."""
+    """Every source of the port, chip_smoke.py and the march_sweep.py it
+    imports, scanned for an import of jax, flax or the JAX package (lazy
+    imports inside functions included)."""
     pkg = os.path.join(REPO, "meshopticalflow_tpu_torch")
-    sources = [os.path.join(REPO, "chip_smoke.py")]
+    sources = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "march_sweep.py")]
     for root, _, files in os.walk(pkg):
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
     assert len(sources) > 30
