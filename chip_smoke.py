@@ -6,10 +6,11 @@ Runs from the root of a checkout on a machine with one NVIDIA GPU, in phases;
 any failure raises, so the run exits non-zero and prints no final ok line.
 
   1. the card's name and power limit; refuse to run without a GPU;
-  2. build the three CUDA libraries from the checkout's sources (SpMV,
-     probes, the geodesic march; one nvcc each, started together, with a
-     fourth beside them: PR 13's design of the march kernel, for phase
-     7m's comparison) and,
+  2. build the four CUDA libraries from the checkout's sources (SpMV,
+     probes, the geodesic march, the banded Cholesky; one nvcc each,
+     started together, with a fifth beside them: the march kernel's
+     earlier design, march_sweep.py's "pr13" case, for phase 7m's
+     comparison) and,
      beside them, the native host library
      (native/meshhost.cpp, g++) into meshopticalflow_tpu_torch/_build/; every
      texture draw below must rasterize with it (``init_profile``'s
@@ -134,15 +135,33 @@ any failure raises, so the run exits non-zero and prints no final ok line.
      13's design of their kernel (march_sweep.py's "pr13" case, built in
      phase 2 and held to the plain march too), which the shipped kernel
      must not trail at the level trace and the halfway;
+  7b. band_factor and panel_sweep (csrc/banded.cu) against their plain
+     twins at the main path's banded systems: the last level's flow c1
+     (float32, float64, and bfloat16 panels into a float32 rhs), the
+     smoothing c1 (float32, float64, 6 columns) and the spectrum's S +
+     sigma M (float32, 4 columns): the solve panels each factor gives
+     within BANDED_TOL (the factor blocks' own distance, and for float32
+     each factor's distance to the float64 factor, recorded beside it),
+     each float32 factor no more than BANDED_F32_FACTOR_VS_TWIN times as
+     far from the float64 factor as the twin's, each sweep and the solve
+     within BANDED_TOL, device times in turns with the twins, bounds from
+     the work this input needs (the panels' and factor's non-zero
+     entries), the panels' batched triangular inversion, one cuBLAS panel
+     product as the yardstick, one grid barrier timed alone; then the last
+     level's flow system solved through the kernels and through the twins
+     (patched into solvers/mg.py), equal in iterations and within 1e-5;
+     every draw records the banded launches and fails if a twin ran on
+     CUDA tensors, and the multigrid, halo, spectrum and phase 4's
+     multigrid draws fail without both banded kernels;
   8. the result lines.
 
 Every phase that drives a path (3, 5, 6, 6b, 6e, 6f, 6c, 6d, 6g) sets the
 launch counts to 0 just before it and reads them just after; phases 5 to 6g
-print and record the SpMV launches per form and the march kernels'
+print and record the SpMV launches per form, the march kernels'
 launches (every draw that traces launches them, and no plain march runs on
-CUDA tensors). The draws of phases 5, 6, 6b,
+CUDA tensors) and the banded kernels' launches. The draws of phases 5, 6, 6b,
 6e, 6f and 6g run with the artifact cache off, so their init is cold as in
-earlier records. The second-to-last line is a JSON record of the twelve
+earlier records. The second-to-last line is a JSON record of the fourteen
 kernels; the last line is {"ok": true, "device": {...}}. The full records
 go to chiprun_out/chip_smoke/ (kernels.json, main_path_{jacobi,multigrid,
 conformal,connection,xla,mf,halo,xla_group,warm_init,tracking,spectrum,
@@ -173,10 +192,12 @@ WORK = os.path.join(REPO, "chiprun_out", "chip_smoke")
 # max |kernel - plain| / max |plain| allowed per value type
 KERNEL_TOL = {"float32": 1e-6, "bfloat16": 1e-6, "float64": 1e-12}
 # Published H100 SXM peaks (NVIDIA data sheet; at the full 700 W limit):
-# HBM3 rate, and the non-tensor-core rates of the SpMV's multiply-adds
-# (bf16 values are widened to f32 before the FMA).
+# HBM3 rate; float32 outside the tensor cores (TF32 would round the
+# operands), bf16 values widened to f32 before the FMA, as every kernel
+# here computes them; float64 at the FP64 tensor-core rate, the card's
+# fastest at full precision.
 HBM_TB_S = 3.35
-PEAK_TFLOP_S = {"float32": 67.0, "bfloat16": 67.0, "float64": 34.0}
+PEAK_TFLOP_S = {"float32": 67.0, "bfloat16": 67.0, "float64": 67.0}
 MG_ROOT_FRACTION = 0.024       # root edge length: 24,576 triangles
 # the mf run's final alignment error against the xla run's (the same
 # pipeline but the flow solve, both under deterministic algorithms): the
@@ -351,23 +372,43 @@ def launches_where(counts: dict, kernel=None, dtype=None, shape=None, variant=No
 
 
 def reset_counts(spmv) -> None:
-    """Zero the launch counts of the SpMV and the march kernels and their
-    plain versions' calls on CUDA tensors."""
-    from meshopticalflow_tpu_torch.kernels import tracing
+    """Zero the launch counts of the SpMV, march and banded kernels and
+    their plain versions' calls on CUDA tensors."""
+    from meshopticalflow_tpu_torch.kernels import banded, tracing
 
     spmv.reset_counts()
     tracing.reset_counts()
+    banded.reset_counts()
 
 
 def launch_counts(spmv) -> dict:
     """kernels/spmv.py:counts, with kernels/tracing.py:counts (the march
     kernels' launches by kernel and by wrapper, the plain marches' calls on
-    CUDA tensors) under "march"."""
-    from meshopticalflow_tpu_torch.kernels import tracing
+    CUDA tensors) under "march" and kernels/banded.py:counts (panel_sweep
+    and band_factor by form, the twins' calls on CUDA tensors) under
+    "banded"."""
+    from meshopticalflow_tpu_torch.kernels import banded, tracing
 
     out = spmv.counts()
     out["march"] = tracing.counts()
+    out["banded"] = banded.counts()
     return out
+
+
+def check_banded_launches(tag: str, counts: dict, solves: bool = False) -> None:
+    """No draw ran a banded twin on CUDA tensors; a draw that ``solves``
+    through the banded factor launched both banded kernels."""
+    b = counts["banded"]
+    if b["plain_on_cuda"] != 0:
+        raise RuntimeError(f"{tag}: a banded twin ran on CUDA tensors: {b}")
+    if solves and (b["panel_sweep"] == 0 or b["band_factor"] == 0):
+        raise RuntimeError(f"{tag}: the banded kernels were not launched: {b}")
+
+
+def banded_line(counts: dict) -> str:
+    b = counts["banded"]
+    return (f"banded launches: band_factor {b['band_factor']}, panel_sweep "
+            f"{b['panel_sweep']}, plain on CUDA {b['plain_on_cuda']}")
 
 
 def check_march_launches(tag: str, counts: dict, traces: bool = True) -> None:
@@ -760,6 +801,7 @@ def check_tracker_goldens(spmv, cpu_blend):
                            f"{np.isfinite(composed).all()}")
     if counts["spmv_ell"] == 0 or counts["spmv_ell_multi"] == 0 or counts["plain_on_cuda"]:
         raise RuntimeError(f"vertex tracker did not go through the kernels: {counts}")
+    check_banded_launches("vertex tracker", counts)
     out["vertex"] = dict(exact=int((~off).sum()), off_at_knife_edges=int(off.sum()),
                          launches=counts)
     phase(4, f"TrackSequence a b --composed: halfway_000.ply {int((~off).sum())}/{off.size} "
@@ -783,6 +825,7 @@ def check_tracker_goldens(spmv, cpu_blend):
         raise RuntimeError("texture tracker outside the ref_cube256 thresholds on the card")
     if counts["spmv_ell"] == 0 or counts["spmv_ell_multi"] == 0 or counts["plain_on_cuda"]:
         raise RuntimeError(f"texture tracker did not go through the kernels: {counts}")
+    check_banded_launches("texture tracker", counts)
     return out
 
 
@@ -817,6 +860,7 @@ def check_spectrum_golden(spmv):
         raise RuntimeError(f"spectrum golden: max rel err {rel:.3e} > 1e-5")
     if counts["spmv_ell_multi"] == 0 or counts["plain_on_cuda"]:
         raise RuntimeError(f"spectrum did not go through the kernels: {counts}")
+    check_banded_launches("spectrum golden", counts, solves=True)
     return dict(max_rel_err=rel, eigenvalues=res.eigenvalues.tolist(), oracle=oracle.tolist(),
                 launches=counts, stats=stats)
 
@@ -888,6 +932,8 @@ def check_goldens(spmv):
                                f"{counts}")
         if (launches_where(counts, shape="rectangular") > 0) != (solver != "jacobi"):
             raise RuntimeError(f"golden run ({solver}) took the wrong solver: {counts}")
+        check_banded_launches(f"golden run ({solver})", counts,
+                              solves=solver in ("multigrid", "c1_bf16"))
     return out
 
 
@@ -1047,6 +1093,7 @@ def drive(spmv, mesh, paths, size, cfg, tag: str, n: int,
     for form, k in counts["by_form"].items():
         phase(n, f"launches of {form}: {k}")
     phase(n, march_line(counts))
+    phase(n, banded_line(counts))
     if hier is not None:
         phase(n, f"hierarchy {json.dumps(rec['hierarchy'])}")
     if "mg" in rec:
@@ -1060,6 +1107,7 @@ def drive(spmv, mesh, paths, size, cfg, tag: str, n: int,
     if counts["plain_on_cuda"] != 0:
         raise RuntimeError(f"{tag}: a plain version ran on CUDA tensors: {counts}")
     check_march_launches(tag, counts)
+    check_banded_launches(tag, counts)
     if counts["march"]["exp_map"] == 0:
         raise RuntimeError(f"{tag}: the init's exp remap launched no exp_map kernel")
     if prob.init_profile["raster_path"] != "native":
@@ -1114,6 +1162,7 @@ def multigrid_path(spmv, root, paths, size):
                  dict(variant="slab"), dict(variant="group")):
         if launches_where(counts, **form) == 0:
             raise RuntimeError(f"multigrid: no {form} launches on the main path: {counts}")
+    check_banded_launches("multigrid", counts, solves=True)
     phase(6, "flow_iters per level " + ", ".join(f"{m['flow_iters']:.0f}"
                                                   for m in rec["levels"]))
     if prob.hier is None:
@@ -1335,6 +1384,7 @@ def halo_path(spmv, root, paths, size, xla_rec, mf_rec):
     prob, rec = drive(spmv, root, paths, size, cfg, "halo", "6f", device_group=group)
     counts = rec["launches"]
     _check_draw("halo", counts, [rec["init_s"], rec["levels_s"]])
+    check_banded_launches("halo", counts, solves=True)
     if (prob.config.flow_backend, prob.hier.flow_kind, prob.hier.smooth_kind) != (
             "halo", "xla", "xla"):
         raise RuntimeError("halo: not the halo flow solve over the three-level smoothing")
@@ -1475,7 +1525,7 @@ import json, os, sys
 sys.path.insert(0, %(repo)r)
 import numpy as np
 import torch
-from meshopticalflow_tpu_torch.kernels import spmv
+from meshopticalflow_tpu_torch.kernels import banded, spmv
 from meshopticalflow_tpu_torch.parallel import distributed as D, halo as H
 from meshopticalflow_tpu_torch.utils.testing import halo_test_system
 
@@ -1491,6 +1541,7 @@ def solve(grp):
     h = H.build_halo_ell(s["cols"], s["vals"].astype(np.float32), grp)
     hc = H.build_halo_coarse(h, s["p0_idx"], s["p0_wt"], s["c1_cols"], s["c1_vals"])
     spmv.reset_counts()
+    banded.reset_counts()
     y = h.matvec(x_in.to(g.device)).cpu()
     x, st = H.halo_mg_pcg(h, hc, b.to(g.device), tol=1e-6, max_iters=400, chunk=8)
     x = x.cpu()
@@ -1498,7 +1549,8 @@ def solve(grp):
                 / np.linalg.norm(b.double().numpy()))
     return x, y, dict(iters=st.iterations, rel=st.rel_residual, residual=res, halo=h.halo,
                       block=h.block, bytes=h.bytes_exchanged,
-                      launches=spmv.counts()["by_form"], x_sum=float(x.double().sum()))
+                      launches=spmv.counts()["by_form"], banded=banded.counts(),
+                      x_sum=float(x.double().sum()))
 
 
 out = {}
@@ -1583,6 +1635,9 @@ def nccl_exchange(world: int, device: str = DEVICE) -> dict:
         if not (sp_["rel"] < 1e-5 and sp_["bytes"] > 0
                 and abs(sp_["x_sum"] - results[0]["split"]["x_sum"]) == 0):
             raise RuntimeError(f"NCCL rank {r['rank']}: {sp_}")
+        cuda_rank = device == "cuda"
+        if sp_["banded"]["plain_on_cuda"] or (cuda_rank and not sp_["banded"]["panel_sweep"]):
+            raise RuntimeError(f"NCCL rank {r['rank']}: banded launches {sp_['banded']}")
     if not (results[0]["x_diff"] <= 1e-5 and results[0]["y_diff"] <= KERNEL_TOL["float32"]
             and results[0]["split"]["iters"] == solo["iters"]):
         raise RuntimeError(f"NCCL: the split solve differs from the solo one: {results[0]}")
@@ -2000,6 +2055,7 @@ def _check_draw(tag: str, counts: dict, values, traces: bool = True) -> None:
     if counts["plain_on_cuda"] != 0:
         raise RuntimeError(f"{tag}: a plain version ran on CUDA tensors: {counts}")
     check_march_launches(tag, counts, traces)
+    check_banded_launches(tag, counts)
     if not all(math.isfinite(float(v)) for v in values):
         raise RuntimeError(f"{tag}: non-finite value in the record")
 
@@ -2206,7 +2262,9 @@ def spectrum_path(spmv, scratch: str):
     for form, k in counts["by_form"].items():
         phase("6d", f"launches of {form}: {k}")
     phase("6d", march_line(counts))
+    phase("6d", banded_line(counts))
     _check_draw("spectrum", counts, [total_s, *eigenvalues, *split.values()], traces=False)
+    check_banded_launches("spectrum", counts, solves=True)
     if not rec["max_rel_err"] <= 1e-3:
         raise RuntimeError(f"spectrum: max rel err {rec['max_rel_err']:.3e} > 1e-3")
     return rec, (basis, pack)
@@ -2601,6 +2659,269 @@ def check_march(prob, composed, earlier) -> list:
     return rows
 
 
+# ----------------------------------------------------------------------------
+# Phase 7b: the banded Cholesky kernels at the main path's systems
+# ----------------------------------------------------------------------------
+
+# max |kernel - twin| / max |twin| of a solution or a factor, by rhs type
+# (bf16 panels widen into a float32 rhs): the kernels sum in fixed orders,
+# the twins in cuBLAS's and cuSOLVER's
+BANDED_TOL = {"float32": 1e-5, "float64": 1e-12}
+# a float32 factor's max |L - L64| / max |L64| from the float64 factor of
+# the same input, at most this many times the twin's own: the solve panels
+# can hide a factor that lost precision (the twin's cuSOLVER sums are no
+# more exact than the kernel's; readings 1.13-1.52x)
+BANDED_F32_FACTOR_VS_TWIN = 2.0
+GRID_SYNC_BARRIERS = 2000     # barriers a timed grid_sync launch
+BANDED_REPLACES = {"band_factor": "meshopticalflow_tpu/solvers/banded.py:130",
+                   "panel_sweep": "meshopticalflow_tpu/solvers/banded.py:206/:224"}
+
+
+def _max_rel(a, b) -> float:
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+
+def _nonzeros(*tensors) -> int:
+    return sum(int((t != 0).sum()) for t in tensors)
+
+
+def _factor_work(s_blocks, l_blocks):
+    """(bytes, operations) the factorization needs for this input: the band
+    blocks' and the factor's non-zero entries once each; (c_j + 1)^2 for a
+    column j of L with c_j entries below its diagonal (its root, c_j scalings
+    and the c_j (c_j + 1) / 2 multiply-adds of its update of the lower half
+    that is left), zeros the band's profile keeps skipped."""
+    below = (l_blocks != 0).sum(dim=1) - 1
+    flops = float(((below + 1).double() ** 2).sum())
+    return _nonzeros(s_blocks, l_blocks) * s_blocks.element_size(), flops
+
+
+def _banded_systems(prob, pack):
+    """The main path's banded systems: (name, s_blocks in float64, nb, bw,
+    panel width k, right-hand sides c, [(panel type, rhs type)], factor
+    types): the last level's flow c1 (the multigrid and halo draws' c1
+    system; the goldens' float64 path; ``mg_c1_bf16``'s bfloat16 panels),
+    the smoothing c1 and the spectrum's S + sigma M (the CLI's last
+    pack)."""
+    import torch
+    from meshopticalflow_tpu_torch.flow import pipeline as P
+    from meshopticalflow_tpu_torch.models import base
+    from meshopticalflow_tpu_torch.solvers.banded import band_revalue
+
+    arrays, cfg, hier = prob.arrays, prob.config, prob.hier
+    sy = _final_systems(prob)
+    flow = base._make_mg_solver(arrays.basis, hier.coarse, hier.patch, sy["d_blocks"],
+                                sy["scale"], sy["w"], sy["sys_vals"], sy["diag"], "mg3",
+                                cfg.mg_cheb_k, cfg.mg_nu, cfg.mg_fine_cheb, True)
+    vsolver, _ = P._vertex_mg_solver(arrays.smooth_ops, arrays.signals, hier,
+                                     cfg.scalar_smooth_weight)
+    f32, f64, bf16 = torch.float32, torch.float64, torch.bfloat16
+    out = []
+    for name, solver, c, pairs in (
+            ("flow c1", flow, 1, [(f32, f32), (bf16, f32), (f64, f64)]),
+            ("smoothing c1", vsolver, 6, [(f32, f32), (f64, f64)])):
+        band, vals, _, _ = solver._c1_factor_args
+        blocks = band_revalue(band.slots, vals.to(f64), band.m, band.nb, band.bw, band.n1)
+        k = max(1, min(8, band.bw // band.nb))
+        out.append((name, blocks, band.nb, band.bw, k, c, pairs, (f32, f64)))
+    bs, pat = pack.bsolver, pack.bsolver.pat
+    blocks = band_revalue(bs.slots, pack.sys_vals.to(f64), pat.m, pat.nb, pat.bw, pat.n)
+    out.append(("spectrum", blocks, pat.nb, pat.bw, bs.panel_k, 4, [(f32, f32)], (f32,)))
+    return out, flow
+
+
+def _in_turns(kernel, twin, kernel_reps, twin_reps):
+    """Device ms of kernel and twin timed in turns (kernel, twin, twin,
+    kernel), each behind the device sleep of ``median_ms``; the mean of each
+    pair."""
+    k1 = median_ms(kernel, **kernel_reps)
+    t1 = median_ms(twin, **twin_reps)
+    t2 = median_ms(twin, **twin_reps)
+    k2 = median_ms(kernel, **kernel_reps)
+    return (k1 + k2) / 2, (t1 + t2) / 2
+
+
+def check_banded(prob, pack, draws) -> dict:
+    """Phase 7b: band_factor and panel_sweep against their twins at the
+    main path's three banded systems, in every type the draws use: the
+    solve panels each factor gives (``build_solve_panels``) and each solve
+    (lower then upper sweep, and each sweep alone from the same input)
+    within BANDED_TOL, each float32 factor within BANDED_F32_FACTOR_VS_TWIN
+    of the twin's distance to the float64 factor; device times in turns
+    with the twin, bounds, the batched triangular inversion that builds the
+    panels, one cuBLAS panel product (the component yardstick), one grid
+    barrier, launches in every draw; then the last level's flow system
+    solved twice, through
+    the kernels and through the twins, equal in iterations and within 1e-5.
+    The comparisons run outside every draw's counting window."""
+    import torch
+    from meshopticalflow_tpu_torch.kernels import banded as kb
+    from meshopticalflow_tpu_torch.models import base
+    from meshopticalflow_tpu_torch.solvers import mg
+    from meshopticalflow_tpu_torch.solvers.banded import build_solve_panels
+
+    systems, flow = _banded_systems(prob, pack)
+    tname = {torch.float32: "float32", torch.float64: "float64", torch.bfloat16: "bfloat16"}
+    # one grid barrier alone, at the grids of the smoothing, flow and
+    # spectrum systems' launches: n barriers less an empty launch
+    barrier_us = {}
+    for blocks in (32, 96, 112):
+        empty = median_ms(lambda: kb.grid_sync(blocks, 0, "cuda"), reps=9, inner=5)
+        full = median_ms(lambda: kb.grid_sync(blocks, GRID_SYNC_BARRIERS, "cuda"), reps=9,
+                         inner=5)
+        barrier_us[blocks] = (full - empty) / GRID_SYNC_BARRIERS * 1e3
+    phase("7b", "one grid barrier (cooperative_groups grid sync, 256-thread blocks): "
+                + ", ".join(f"{us:.3f} us at {b} blocks" for b, us in barrier_us.items()))
+    factors, sweeps = [], []
+    for name, blocks, nb, bw, k, c, pairs, factor_types in systems:
+        m = blocks.shape[0]
+        for dt in factor_types:
+            sb = blocks.to(dt).contiguous()
+            l_k, ok_k = kb.band_factor(sb, 0.0, nb, bw)
+            l_p, ok_p = kb.band_cholesky_plain(sb, 0.0, nb, bw)
+            # the tolerance holds the solve panels each factor gives; the
+            # blocks' own distance, and each factor's from the float64 factor
+            # of the same (rounded) input, are recorded beside it
+            (dinv_k, pbelow_k), (dinv_p, pbelow_p) = (build_solve_panels(l, k)
+                                                      for l in (l_k, l_p))
+            err = max(_max_rel(dinv_k, dinv_p), _max_rel(pbelow_k, pbelow_p))
+            rec = dict(system=name, dtype=tname[dt], m=m, nb=nb, bw=bw, ok=bool(ok_k),
+                       ok_twin=bool(ok_p), max_abs_err=float((l_k - l_p).abs().max()),
+                       panels_rel_err=err, blocks_rel_err=_max_rel(l_k, l_p))
+            if dt != torch.float64:
+                l_ref, _ = kb.band_factor(sb.double(), 0.0, nb, bw)
+                rec["blocks_rel_err_to_f64"] = _max_rel(l_k, l_ref)
+                rec["twin_blocks_rel_err_to_f64"] = _max_rel(l_p, l_ref)
+                del l_ref
+            del dinv_k, pbelow_k, dinv_p, pbelow_p
+            rec["ms"], rec["plain_ms"] = _in_turns(
+                lambda: kb.band_factor(sb, 0.0, nb, bw),
+                lambda: kb.band_cholesky_plain(sb, 0.0, nb, bw),
+                dict(reps=5, inner=2), dict(reps=3, inner=1))
+            nbytes, flops = _factor_work(sb, l_p)
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, tname[dt])
+            rec["gflop"] = flops / 1e9
+            rec["build_panels_ms"] = median_ms(lambda: build_solve_panels(l_k, k), reps=3,
+                                               inner=1)
+            factors.append(rec)
+            to_f64 = ("" if dt == torch.float64 else
+                      f"; to the float64 factor: kernel {rec['blocks_rel_err_to_f64']:.3e}, "
+                      f"twin {rec['twin_blocks_rel_err_to_f64']:.3e} (kernel <= "
+                      f"{BANDED_F32_FACTOR_VS_TWIN} x twin)")
+            phase("7b", f"band_factor {name} {tname[dt]} ({m} steps of {nb}, band {bw}): "
+                        f"solve panels max|d|/max|x| {err:.3e} (tol {BANDED_TOL[tname[dt]]}); "
+                        f"blocks {rec['blocks_rel_err']:.3e}{to_f64}; ok {rec['ok']} / twin "
+                        f"{rec['ok_twin']}; kernel {rec['ms']:.3f} ms, twin "
+                        f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
+                        f"({rec['gflop']:.2f} GFLOP, {rec['bound_by']}, share "
+                        f"{rec['bound_ms'] / rec['ms']:.3f}); "
+                        f"panels built (batched solve_triangular) in "
+                        f"{rec['build_panels_ms']:.3f} ms")
+            near_f64 = dt == torch.float64 or (
+                rec["blocks_rel_err_to_f64"]
+                <= BANDED_F32_FACTOR_VS_TWIN * rec["twin_blocks_rel_err_to_f64"])
+            if not (rec["ok"] and rec["ok_twin"] and err <= BANDED_TOL[tname[dt]] and near_f64):
+                raise RuntimeError(f"band_factor {name} {tname[dt]}: {rec}")
+        l64, _ = kb.band_cholesky_plain(blocks, 0.0, nb, bw)
+        dinv64, pbelow64 = build_solve_panels(l64, k)
+        mp, s_, _ = dinv64.shape
+        gen = torch.Generator(device=blocks.device).manual_seed(mp)
+        b64 = torch.randn((mp, s_, c), dtype=torch.float64, device=blocks.device,
+                          generator=gen)
+        for pdt, rdt in pairs:
+            dinv, pbelow, b = dinv64.to(pdt), pbelow64.to(pdt), b64.to(rdt)
+            y_k, y_p = kb.panel_sweep(dinv, pbelow, b, False), \
+                kb.panel_lower_solve_plain(dinv, pbelow, b)
+            x_k, x_p = kb.panel_sweep(dinv, pbelow, y_k, True), \
+                kb.panel_upper_solve_plain(dinv, pbelow, y_p)
+            rec = dict(system=name, panels=tname[pdt], rhs=tname[rdt], mp=mp, s=s_, bw=bw,
+                       c=c, lower_err=_max_rel(y_k, y_p),
+                       upper_err=_max_rel(x_k, kb.panel_upper_solve_plain(dinv, pbelow, y_k)),
+                       solve_err=_max_rel(x_k, x_p), max_abs_err=float((x_k - x_p).abs().max()))
+            rec["ms"], rec["plain_ms"] = _in_turns(
+                lambda: kb.panel_sweep(dinv, pbelow, b, False),
+                lambda: kb.panel_lower_solve_plain(dinv, pbelow, b),
+                dict(reps=15, inner=5), dict(reps=5, inner=2))
+            rec["upper_ms"], rec["upper_plain_ms"] = _in_turns(
+                lambda: kb.panel_sweep(dinv, pbelow, y_k, True),
+                lambda: kb.panel_upper_solve_plain(dinv, pbelow, y_k),
+                dict(reps=15, inner=5), dict(reps=5, inner=2))
+            rec["solve_issued_ms"] = issue_ms(
+                lambda: kb.panel_sweep(dinv, pbelow, kb.panel_sweep(dinv, pbelow, b, False),
+                                       True), reps=9, inner=3)
+            # the panels' non-zero entries once (dinv's upper half, pbelow's
+            # blocks past the band's staircase and the profile's zeros are
+            # zero; the kernel reads them whole), the vectors once
+            entries = _nonzeros(dinv, pbelow)
+            rec["nonzero_share"] = entries / (dinv.numel() + pbelow.numel())
+            rec["bound_ms"], rec["bound_by"] = bound(
+                entries * dinv.element_size() + 2 * _nbytes(b), 2.0 * c * entries, tname[rdt])
+            dw, bw_ = dinv[0].to(rdt), b[0]
+            rec["panel_product_ms"] = median_ms(lambda: dw @ bw_, reps=9, inner=10)
+            sweeps.append(rec)
+            tol = BANDED_TOL[tname[rdt]]
+            phase("7b", f"panel_sweep {name} {tname[pdt]} panels, {tname[rdt]} rhs ({mp} "
+                        f"panels of {s_}, band {bw}, {c} columns): solve max|d|/max|x| "
+                        f"{rec['solve_err']:.3e}, lower {rec['lower_err']:.3e}, upper "
+                        f"{rec['upper_err']:.3e} (tol {tol}); lower {rec['ms'] * 1e3:.1f} us, "
+                        f"upper {rec['upper_ms'] * 1e3:.1f} us (twins "
+                        f"{rec['plain_ms'] * 1e3:.1f} / {rec['upper_plain_ms'] * 1e3:.1f} us), "
+                        f"both issued {rec['solve_issued_ms'] * 1e3:.1f} us; bound "
+                        f"{rec['bound_ms'] * 1e3:.1f} us a sweep ({rec['bound_by']}; "
+                        f"non-zero share of the panels {rec['nonzero_share']:.3f}; share "
+                        f"{rec['bound_ms'] / rec['ms']:.3f} lower, "
+                        f"{rec['bound_ms'] / rec['upper_ms']:.3f} upper); one cuBLAS panel "
+                        f"product ({s_}x{s_} by {s_}x{c}) {rec['panel_product_ms'] * 1e3:.2f} us")
+            if max(rec["solve_err"], rec["lower_err"], rec["upper_err"]) > tol:
+                raise RuntimeError(f"panel_sweep {name}: {rec}")
+
+    # the last level's flow system, solved through the kernels and the twins
+    cfg, hier, arrays = prob.config, prob.hier, prob.arrays
+    sy = _final_systems(prob)
+    rho = dict(hier.patch.mg_pack.rho)
+
+    def solve_once():
+        hier.patch.mg_pack.rho.clear()
+        hier.patch.mg_pack.rho.update(rho)
+        solver = base._make_mg_solver(arrays.basis, hier.coarse, hier.patch, sy["d_blocks"],
+                                      sy["scale"], sy["w"], sy["sys_vals"], sy["diag"], "mg3",
+                                      cfg.mg_cheb_k, cfg.mg_nu, cfg.mg_fine_cheb, True)
+        x, st = solver.solve(sy["rhs"], tol=cfg.cg_tol, max_iters=min(cfg.cg_max_iters, 200))
+        torch.cuda.synchronize()
+        return x, st
+
+    kb.reset_counts()
+    x_k, st_k = solve_once()
+    via_kernels = kb.counts()
+    real = (mg.band_cholesky, mg.panel_lower_solve, mg.panel_upper_solve)
+    mg.band_cholesky, mg.panel_lower_solve, mg.panel_upper_solve = (
+        kb.band_cholesky_plain, kb.panel_lower_solve_plain, kb.panel_upper_solve_plain)
+    try:
+        kb.reset_counts()
+        x_p, st_p = solve_once()
+        via_twins = kb.counts()
+    finally:
+        mg.band_cholesky, mg.panel_lower_solve, mg.panel_upper_solve = real
+    last = dict(iterations_kernels=st_k.iterations, iterations_twins=st_p.iterations,
+                residual_kernels=st_k.rel_residual, residual_twins=st_p.rel_residual,
+                rel_diff=_max_rel(x_k, x_p), launches_kernels=via_kernels,
+                launches_twins=via_twins)
+    phase("7b", f"last level's flow system ({arrays.basis.n_coeffs} unknowns): through the "
+                f"kernels {st_k.iterations} iterations (residual {st_k.rel_residual:.3e}, "
+                f"{via_kernels['band_factor']} factor and {via_kernels['panel_sweep']} sweep "
+                f"launches), through the twins {st_p.iterations} ({st_p.rel_residual:.3e}, "
+                f"{via_twins['plain_on_cuda']} twin calls, {via_twins['panel_sweep']} "
+                f"launches); solutions max|d|/max|x| {last['rel_diff']:.3e} (<= 1e-5)")
+    if (st_k.iterations != st_p.iterations or last["rel_diff"] > 1e-5
+            or via_kernels["plain_on_cuda"] or via_twins["panel_sweep"]
+            or via_twins["band_factor"] or not via_kernels["panel_sweep"]):
+        raise RuntimeError(f"last-level flow solve, kernels against twins: {last}")
+    launches = {tag: d["launches"]["banded"] for tag, d in draws.items()
+                if "launches" in d and "banded" in d["launches"]}
+    return dict(factors=factors, sweeps=sweeps, last_level=last, launches=launches,
+                barrier_us=barrier_us)
+
+
 def iteration_split(prob):
     """One multigrid PCG iteration of the last level's flow system, each
     part timed alone: the exact c1 solve (the two banded sweeps), the whole
@@ -2678,7 +2999,7 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
     sys.path.insert(0, REPO)
     import march_sweep
     from meshopticalflow_tpu_torch import native
-    from meshopticalflow_tpu_torch.kernels import build, probes, spmv, tracing
+    from meshopticalflow_tpu_torch.kernels import banded, build, probes, spmv, tracing
 
     os.makedirs(WORK, exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2689,11 +3010,12 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
     with ThreadPoolExecutor(1) as pool:
         host_lib = pool.submit(native.build)      # g++, beside the nvcc builds
         libs = build.build_all([spmv.LIBRARY, probes.LIBRARY, tracing.LIBRARY,
-                                earlier_march])
+                                banded.LIBRARY, earlier_march])
         libs["meshhost"] = host_lib.result()
     spmv.LIBRARY.load()
     probes.LIBRARY.load()
     tracing.LIBRARY.load()
+    banded.LIBRARY.load()
     if native.get_lib() is None:
         raise RuntimeError("the native host library does not load")
     phase(2, f"built {', '.join(os.path.relpath(p, REPO) for p in libs.values())} "
@@ -2749,6 +3071,7 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
              f"L2-resident {rates['l2_copy_tb_s']:.3f} TB/s (16 MB); published HBM "
              f"{HBM_TB_S} TB/s")
     spmv_report = check_spmv(spmv, operators, rates["l2_copy_tb_s"], draws)
+    banded_report = check_banded(prob, spectrum_ops[1], draws)
     del operators, spectrum_ops
     record_halo_form(spmv_report, draws["halo"])
     march_report = check_march(prob, composed, earlier_march)
@@ -2788,6 +3111,23 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
                for tag in ("multigrid", "jacobi", "conformal", "connection", "xla", "mf",
                            "halo", "xla_group", "warm_init", "tracking", "spectrum",
                            "viewer")}))
+    flow_factor = next(r for r in banded_report["factors"]
+                       if r["system"] == "flow c1" and r["dtype"] == "float32")
+    flow_sweep = next(r for r in banded_report["sweeps"]
+                      if r["system"] == "flow c1" and r["panels"] == "float32")
+    for name, r, extra in (
+            ("band_factor", flow_factor, dict(build_panels_ms=flow_factor["build_panels_ms"],
+                                              panel_product_ms=flow_sweep["panel_product_ms"])),
+            ("panel_sweep", flow_sweep, dict(upper_ms=flow_sweep["upper_ms"],
+                                             upper_plain_ms=flow_sweep["upper_plain_ms"],
+                                             solve_issued_ms=flow_sweep["solve_issued_ms"],
+                                             panel_product_ms=flow_sweep["panel_product_ms"]))):
+        kernels.append(dict(
+            name=name, route="cuda", source="meshopticalflow_tpu_torch/csrc/banded.cu",
+            replaces=BANDED_REPLACES[name], launches=draws["multigrid"]["launches"]["banded"][name],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None, **extra,
+            **{f"launches_{tag}_path": n[name] for tag, n in banded_report["launches"].items()}))
     for fn_name, rec in probe_report.items():
         kernels.append(dict(
             name=fn_name, route="cuda", source="meshopticalflow_tpu_torch/csrc/probes.cu",
@@ -2798,7 +3138,7 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
     elapsed = time.time() - t_start
     with open(os.path.join(WORK, "kernels.json"), "w") as f:
         json.dump(dict(card=card, rates=rates, spmv=spmv_report, probes=probe_report,
-                       march=march_report,
+                       march=march_report, banded=banded_report,
                        iteration_split=split, sweeps=mg_rec["sweeps"], goldens=goldens,
                        twolevel_split={t: draws[t]["split"] for t in ("conformal",
                                                                       "connection")},

@@ -3,8 +3,7 @@
 Port of meshopticalflow_tpu/solvers/banded.py, the exact coarse-1 solve of
 the multigrid cycle. The host layout (``BandPattern``, ``build_band_pattern``)
 is a jax-free copy (tests/test_torch_host.py pins its source). The device
-half replaces the reference's ``lax.scan``s with Python loops whose bodies
-are the same few batched tensor ops as the scan bodies:
+half:
 
     band_revalue        ELL values -> (m, nb+bw, nb) lower band blocks
     band_cholesky       right-looking banded Cholesky over the m block steps
@@ -12,15 +11,19 @@ are the same few batched tensor ops as the scan bodies:
     panel_lower_solve   L y = rhs, one dense step per panel
     panel_upper_solve   L^T x = y, reverse
 
+The reference runs the last three loops as ``lax.scan``s; here they are the
+hand-written kernels of csrc/banded.cu on CUDA tensors (one launch each:
+kernels/banded.py) and their plain twins, Python loops of the scan bodies'
+few tensor ops, on CPU tensors. ``build_solve_panels`` stays one batched
+``torch.linalg.solve_triangular`` a factorization.
+
 and, for the spectrum's shift-invert solves, ``BandedCholeskySolver`` (the
 float32 factor behind an escalating diagonal shift) and the PCG it
 preconditions (``ell_pcg_banded``, ``ell_pcg_banded_multi``, ``bpcg_probe``).
 
 They run in the dtype of the values they are given: float32 on the float32
 path (the reference's only precision), float64 on the float64 path, which
-the card runs natively. The loops are latency-bound sequences of small
-kernels; a hand kernel waits until the H100 record shows that they carry
-the time (PERF.md).
+the card runs natively.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from meshopticalflow_tpu_torch.kernels.banded import MAX_COLUMNS, band_factor, panel_sweep
 from meshopticalflow_tpu_torch.ops.bsr import rcm_permutation
 from meshopticalflow_tpu_torch.ops.ell import ell_matvec
 from meshopticalflow_tpu_torch.solvers.cg import CGStats, _safe_div
@@ -122,31 +126,10 @@ def band_cholesky(s_blocks: torch.Tensor, shift, nb: int, bw: int):
 
     ``shift`` is ADDED to the diagonal (absolute). A breakdown (a window
     that is not positive definite) surfaces as ok=False; its blocks are
-    replaced by finite stand-ins (identity, zero) so the sweep finishes."""
-    dtype, device = s_blocks.dtype, s_blocks.device
-    m = s_blocks.shape[0]
-    eye = torch.eye(nb, dtype=dtype, device=device)
-    w = torch.zeros((nb + bw, nb + bw), dtype=dtype, device=device)
-    out = torch.empty((m, nb + bw, nb), dtype=dtype, device=device)
-    bad_any = torch.zeros((), dtype=torch.bool, device=device)
-    for i in range(m):
-        s_i = s_blocks[i]
-        d_low = torch.tril(s_i[:nb])
-        d = d_low + d_low.T - torch.diag(torch.diagonal(d_low)) + w[:nb, :nb] \
-            + shift * eye
-        ld, info = torch.linalg.cholesky_ex(d)
-        p = s_i[nb:] + w[nb:, :nb]
-        lp = torch.linalg.solve_triangular(ld.T, p, upper=True, left=False)
-        bad = (info != 0) | ~torch.isfinite(ld).all()
-        ld = torch.where(bad, eye, ld)
-        lp = torch.where(bad, torch.zeros((), dtype=dtype, device=device), lp)
-        bad_any |= bad
-        w_next = torch.zeros_like(w)
-        w_next[:bw, :bw] = w[nb:, nb:] - lp @ lp.T
-        w = w_next
-        out[i, :nb] = ld
-        out[i, nb:] = lp
-    return out, ~bad_any
+    replaced by finite stand-ins (identity, zero) so the sweep finishes.
+    CUDA tensors: csrc/banded.cu's band_factor; CPU tensors: its plain twin
+    (kernels/banded.py)."""
+    return band_factor(s_blocks, shift, nb, bw)
 
 
 def build_solve_panels(l_blocks: torch.Tensor, k: int):
@@ -172,54 +155,30 @@ def build_solve_panels(l_blocks: torch.Tensor, k: int):
         panel[:, t * nb: t * nb + nbbw, t, :] = lb[:, t]
     panel = panel.reshape(mp, s + bw, s)
     eye = torch.eye(s, dtype=dtype, device=device).expand(mp, s, s)
-    dinv = torch.linalg.solve_triangular(panel[:, :s, :], eye, upper=False)
+    # solve_triangular returns column-major panels; the sweeps take them row-major
+    dinv = torch.linalg.solve_triangular(panel[:, :s, :], eye, upper=False).contiguous()
     return dinv, panel[:, s:, :].contiguous()
-
-
-def _widen(panel: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """A panel in the rhs dtype (panels may be stored in bfloat16)."""
-    return panel if panel.dtype == dtype else panel.to(dtype)
 
 
 def panel_lower_solve(dinv: torch.Tensor, pbelow: torch.Tensor,
                       rhs_panels: torch.Tensor) -> torch.Tensor:
-    """y from L y = rhs on the panel layout; rhs_panels (mp, S, c)."""
-    mp, s, _ = dinv.shape
-    bw = pbelow.shape[1]
-    c = rhs_panels.shape[-1]
-    dt = rhs_panels.dtype
-    y = torch.empty_like(rhs_panels)
-    acc = torch.zeros((bw, c), dtype=dt, device=rhs_panels.device)
-    for i in range(mp):
-        torch.matmul(_widen(dinv[i], dt), rhs_panels[i] - acc[:s], out=y[i])
-        if bw == s:
-            acc = _widen(pbelow[i], dt) @ y[i]
-        else:
-            acc = torch.cat([acc[s:], torch.zeros_like(acc[:s])], dim=0) \
-                + _widen(pbelow[i], dt) @ y[i]
-    return y
+    """y from L y = rhs on the panel layout; rhs_panels (mp, S, c). CUDA
+    tensors: one launch of csrc/banded.cu's panel_sweep; CPU tensors: its
+    plain twin."""
+    return panel_sweep(dinv, pbelow, rhs_panels, upper=False)
 
 
 def panel_upper_solve(dinv: torch.Tensor, pbelow: torch.Tensor,
                       y_panels: torch.Tensor) -> torch.Tensor:
     """x from L^T x = y (reverse sweep) on the panel layout."""
-    mp, s, _ = dinv.shape
-    bw = pbelow.shape[1]
-    c = y_panels.shape[-1]
-    dt = y_panels.dtype
-    x = torch.empty_like(y_panels)
-    xwin = torch.zeros((bw, c), dtype=dt, device=y_panels.device)
-    for i in range(mp - 1, -1, -1):
-        t = y_panels[i] - _widen(pbelow[i], dt).T @ xwin
-        torch.matmul(_widen(dinv[i], dt).T, t, out=x[i])
-        xwin = x[i] if bw == s else torch.cat([x[i], xwin[: bw - s]], dim=0)
-    return x
+    return panel_sweep(dinv, pbelow, y_panels, upper=True)
 
 
 def band_solve_panels(dinv: torch.Tensor, pbelow: torch.Tensor,
                       perm: torch.Tensor, inv_perm: torch.Tensor,
                       b: torch.Tensor, n: int) -> torch.Tensor:
-    """x = A^{-1} b through the panelized factorization (b (n,) or (n, c))."""
+    """x = A^{-1} b through the panelized factorization (b (n,) or (n, c));
+    the sweeps run on groups of at most MAX_COLUMNS columns."""
     squeeze = b.dim() == 1
     bc = b[:, None] if squeeze else b
     c = bc.shape[1]
@@ -228,9 +187,14 @@ def band_solve_panels(dinv: torch.Tensor, pbelow: torch.Tensor,
     pad = mp * s - n
     if pad:
         bp = torch.cat([bp, torch.zeros((pad, c), dtype=bp.dtype, device=bp.device)])
-    y = panel_lower_solve(dinv, pbelow, bp.reshape(mp, s, c))
-    x = panel_upper_solve(dinv, pbelow, y)
-    out = x.reshape(mp * s, c)[:n][inv_perm].to(b.dtype)
+    # the sweeps take up to MAX_COLUMNS right-hand sides a launch
+    parts = []
+    for j0 in range(0, c, MAX_COLUMNS):
+        part = bp[:, j0:j0 + MAX_COLUMNS].contiguous().reshape(mp, s, -1)
+        y = panel_lower_solve(dinv, pbelow, part)
+        parts.append(panel_upper_solve(dinv, pbelow, y).reshape(mp * s, -1))
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    out = x[:n][inv_perm].to(b.dtype)
     return out[:, 0] if squeeze else out
 
 

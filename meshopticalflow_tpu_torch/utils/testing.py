@@ -4,7 +4,8 @@ Jax-free: ``octa_sphere`` is a copy of meshopticalflow_tpu/utils/testing.py's
 (drift guard: tests/test_torch_host.py::HOST_COPIES); ``arpack_spectrum`` is
 the spectrum's reference on the card, where no JAX package is installed;
 ``halo_test_system`` is the halo solvers' system on the card;
-``flat_grid`` and ``march_lanes`` are the march kernels' meshes and lanes.
+``flat_grid`` and ``march_lanes`` are the march kernels' meshes and lanes;
+``band_test_blocks`` the banded kernels' systems.
 """
 
 from __future__ import annotations
@@ -124,3 +125,25 @@ def halo_test_system(subdiv: int):
     c1 = ell_from_scipy((p.T @ a @ p).tocsr())
     return dict(cols=cols, vals=vals, a=a, p0_idx=p0_idx, p0_wt=p0_wt, c1_cols=c1.cols,
                 c1_vals=c1.vals, b=np.random.default_rng(5).normal(size=n))
+
+
+def band_test_blocks(m: int, nb: int, bw: int, seed: int = 0,
+                     indefinite: bool = False) -> np.ndarray:
+    """Band blocks (m, nb + bw, nb), float64, in solvers/banded.py's layout
+    (step i's rows i*nb + r, columns i*nb + c; the diagonal block's strict
+    upper half zero) of a symmetric matrix of order m * nb and semiband bw:
+    off-diagonal entries from U(-1, 1) / (2 bw + 1) and a diagonal from
+    U(1, 2), so diagonally dominant and positive definite; ``indefinite``
+    makes the first diagonal entry of step m // 2 -1, so the factorization
+    breaks down there and a diagonal shift of 1.5 or more repairs it."""
+    rng = np.random.default_rng(seed)
+    r = np.arange(nb + bw)[:, None]
+    c = np.arange(nb)[None, :]
+    keep = (r >= c) & (r - c <= bw)
+    blocks = rng.uniform(-1.0, 1.0, (m, nb + bw, nb)) / (2 * bw + 1) * keep
+    blocks[:, np.arange(nb), np.arange(nb)] = rng.uniform(1.0, 2.0, (m, nb))
+    rows = np.arange(m)[:, None, None] * nb + r[None]
+    blocks[np.broadcast_to(rows >= m * nb, blocks.shape)] = 0.0
+    if indefinite:
+        blocks[m // 2, 0, 0] = -1.0
+    return blocks

@@ -291,3 +291,227 @@ def test_ell_pcg_banded_matches_reference(multi):
     assert _rel(x.numpy(), x_ref) <= 1e-10
     r = b - _csr(cols, vals) @ x.numpy()
     assert np.linalg.norm(r) <= 1e-10 * np.linalg.norm(b)
+
+
+# -- the plain twins of the banded kernels at the kernels' shapes ---------------
+
+def _panels_of(n, nb, k, seed, bw_pad=None):
+    """A float64 factor of a mesh-like SPD system reblocked into panels of
+    k * nb, in both packages' layouts (the reference's from the same
+    factor blocks)."""
+    rng = np.random.default_rng(seed)
+    a = _mesh_like_spd(n, rng)
+    cols, vals = _to_ell(a)
+    pat = tb.build_band_pattern(cols, nb=nb, bw_pad=bw_pad)
+    _, l_blocks, ok, (dinv, pbelow) = _port_factor(pat, vals, torch.float64, k=k)
+    assert ok
+    dinv_j, pbelow_j = jb.build_solve_panels(jnp.asarray(l_blocks.numpy()), k)
+    return pat, dinv, pbelow, dinv_j, pbelow_j
+
+
+# (case, n, nb, k, bw_pad, c): bw > S with k capped at 8 (the window shifts by
+# S a panel), c = 6 at S = 256 (the smoothing c1's), c = 32, one panel, and a
+# block count that k does not divide
+TWIN_CASES = {
+    "bw_gt_S_k8": (1200, 32, 8, 384, 2),
+    "c6_S256": (1100, 64, 4, 256, 6),
+    "c32": (700, 64, 2, 128, 32),
+    "mp1": (200, 64, 4, 256, 3),
+    "m_not_divisible": (1000, 64, 3, 192, 1),
+}
+
+
+@pytest.mark.parametrize("case", list(TWIN_CASES))
+def test_panel_sweep_twins_match_reference_f64(case):
+    n, nb, k, bw_pad, c = TWIN_CASES[case]
+    pat, dinv, pbelow, dinv_j, pbelow_j = _panels_of(n, nb, k, n + c, bw_pad)
+    mp, s, _ = dinv.shape
+    bw = pbelow.shape[1]
+    assert {"bw_gt_S_k8": bw > s and k == 8, "mp1": mp == 1,
+            "m_not_divisible": pat.m % k != 0}.get(case, True)
+    rhs = np.random.default_rng(c).normal(size=(mp, s, c))
+    from meshopticalflow_tpu_torch.kernels import banded as kb
+
+    y = kb.panel_lower_solve_plain(dinv, pbelow, torch.as_tensor(rhs))
+    y_j = jb.panel_lower_solve(dinv_j, pbelow_j, jnp.asarray(rhs))
+    assert _rel(y.numpy(), y_j) < 1e-12
+    x = kb.panel_upper_solve_plain(dinv, pbelow, y)
+    x_j = jb.panel_upper_solve(dinv_j, pbelow_j, y_j)
+    assert _rel(x.numpy(), x_j) < 1e-12
+
+
+@pytest.mark.parametrize("case", ["bw_gt_S_k8", "c6_S256", "c32"])
+def test_panel_sweep_twins_match_reference_f32_and_bf16(case):
+    """float32 panels and rhs, and bfloat16 panels widened into a float32
+    rhs (the ``mg_c1_bf16`` path), against the reference's scans on the same
+    values: JAX promotes the bfloat16 panel to float32 in the product, as
+    the twin's ``_widen`` does."""
+    from meshopticalflow_tpu_torch.kernels import banded as kb
+
+    n, nb, k, bw_pad, c = TWIN_CASES[case]
+    _, dinv, pbelow, _, _ = _panels_of(n, nb, k, n + c, bw_pad)
+    rhs = np.random.default_rng(c).normal(size=(dinv.shape[0], dinv.shape[1], c))
+    for panel_dtype, jnp_dtype in ((torch.float32, jnp.float32),
+                                   (torch.bfloat16, jnp.bfloat16)):
+        d_t, p_t = dinv.to(panel_dtype), pbelow.to(panel_dtype)
+        d_j = jnp.asarray(d_t.float().numpy()).astype(jnp_dtype)
+        p_j = jnp.asarray(p_t.float().numpy()).astype(jnp_dtype)
+        r_t = torch.as_tensor(rhs, dtype=torch.float32)
+        y = kb.panel_lower_solve_plain(d_t, p_t, r_t)
+        y_j = jb.panel_lower_solve(d_j, p_j, jnp.asarray(rhs, jnp.float32))
+        assert y.dtype == torch.float32 and _rel(y.numpy(), y_j) < F32_TOL
+        x = kb.panel_upper_solve_plain(d_t, p_t, y)
+        x_j = jb.panel_upper_solve(d_j, p_j, y_j)
+        assert _rel(x.numpy(), x_j) < F32_TOL
+
+
+@pytest.mark.parametrize("case", ["bw_gt_S_k8", "m_not_divisible"])
+def test_band_cholesky_twin_matches_reference(case):
+    """The factor's twin against the reference's scan (float32, its only
+    precision) at a band the panel reblocking shifts by S < bw, and at a
+    block count the panel width does not divide."""
+    from meshopticalflow_tpu_torch.kernels import banded as kb
+
+    n, nb, k, bw_pad, _ = TWIN_CASES[case]
+    rng = np.random.default_rng(n)
+    a = _mesh_like_spd(n, rng)
+    cols, vals = _to_ell(a)
+    pat = tb.build_band_pattern(cols, nb=nb, bw_pad=bw_pad)
+    s = tb.band_revalue(torch.as_tensor(pat.slots), torch.as_tensor(vals, dtype=torch.float32),
+                        pat.m, pat.nb, pat.bw, pat.n)
+    l_t, ok_t = kb.band_cholesky_plain(s, 0.0, pat.nb, pat.bw)
+    l_j, ok_j = jb.band_cholesky(jnp.asarray(s.numpy()), 0.0, pat.nb, pat.bw)
+    assert bool(ok_t) and bool(ok_j)
+    assert _rel(l_t.numpy(), np.asarray(l_j)) < F32_TOL
+
+
+def test_banded_wrappers_take_the_twin_on_cpu():
+    """CPU tensors run the twins and count no kernel launch (the wrappers
+    route only by device)."""
+    from meshopticalflow_tpu_torch.kernels import banded as kb
+
+    n, nb, k, bw_pad, c = TWIN_CASES["c6_S256"]
+    _, dinv, pbelow, _, _ = _panels_of(n, nb, k, 1, bw_pad)
+    rhs = torch.as_tensor(np.random.default_rng(2).normal(size=(dinv.shape[0], dinv.shape[1], c)))
+    kb.reset_counts()
+    y = tb.panel_lower_solve(dinv, pbelow, rhs)
+    x = tb.panel_upper_solve(dinv, pbelow, y)
+    assert torch.equal(y, kb.panel_lower_solve_plain(dinv, pbelow, rhs))
+    assert torch.equal(x, kb.panel_upper_solve_plain(dinv, pbelow, y))
+    s = torch.zeros((3, 3 * nb, nb), dtype=torch.float64)
+    s[:, torch.arange(nb), torch.arange(nb)] = 1.0
+    l_blocks, ok = tb.band_cholesky(s, 0.0, nb, 2 * nb)
+    assert bool(ok) and l_blocks.shape == s.shape
+    assert kb.counts() == dict(panel_sweep=0, band_factor=0, by_form={}, plain_on_cuda=0)
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("case", ["mixed_devices", "panel_types", "rhs_type", "c33",
+                                  "noncontiguous", "not_cuda", "f32_panels_f64_rhs",
+                                  "f64_panels_f32_rhs"])
+def test_panel_sweep_refuses_rather_than_take_the_twin(case):
+    """Operands that are not all on the CPU never reach the twin: mixed
+    devices, mismatched types, a type pair banded.cu has no entry point for,
+    more than 32 columns and non-contiguous operands raise before anything
+    launches (meta tensors stand in for a card's)."""
+    from meshopticalflow_tpu_torch.kernels import banded as kb
+
+    dinv, pbelow, rhs = _meta(4, 64, 64), _meta(4, 128, 64), _meta(4, 64, 3)
+    err = ValueError
+    if case == "mixed_devices":
+        pbelow = torch.zeros(4, 128, 64)
+    elif case == "panel_types":
+        pbelow, err = _meta(4, 128, 64, dtype=torch.float64), TypeError
+    elif case == "rhs_type":
+        rhs, err = _meta(4, 64, 3, dtype=torch.bfloat16), TypeError
+    elif case == "c33":
+        rhs = _meta(4, 64, 33)
+    elif case == "f32_panels_f64_rhs":
+        rhs, err = _meta(4, 64, 3, dtype=torch.float64), TypeError
+    elif case == "f64_panels_f32_rhs":
+        dinv, pbelow, err = (_meta(4, 64, 64, dtype=torch.float64),
+                             _meta(4, 128, 64, dtype=torch.float64), TypeError)
+    elif case == "noncontiguous":
+        dinv = _meta(4, 64, 64).transpose(1, 2)
+    kb.reset_counts()
+    with pytest.raises(err):
+        kb.panel_sweep(dinv, pbelow, rhs, upper=case == "c33")
+    assert kb.counts()["panel_sweep"] == 0 and kb.counts()["plain_on_cuda"] == 0
+
+
+@pytest.mark.parametrize("case", ["float16", "nb_above_128", "nb_64", "nb_32",
+                                  "noncontiguous", "not_cuda"])
+def test_band_factor_refuses_rather_than_take_the_twin(case):
+    """The kernel factors blocks of 128 (every band layout the port builds):
+    another block size, another type or a non-contiguous operand raises
+    before anything launches."""
+    from meshopticalflow_tpu_torch.kernels import banded as kb
+
+    nb = {"nb_above_128": 256, "nb_64": 64, "nb_32": 32}.get(case, 128)
+    bw = max(nb, 256)
+    s, err = _meta(5, nb + bw, nb), ValueError
+    if case == "float16":
+        s, err = _meta(5, nb + bw, nb, dtype=torch.float16), TypeError
+    elif case == "noncontiguous":
+        s = _meta(5, nb, nb + bw).transpose(1, 2)
+    kb.reset_counts()
+    with pytest.raises(err):
+        kb.band_factor(s, 0.0, nb, bw)
+    assert kb.counts()["band_factor"] == 0
+
+
+@pytest.mark.parametrize("c", [33, 70])
+def test_band_solve_panels_splits_wide_rhs(c):
+    """More right-hand sides than a sweep takes (the spectrum's purification
+    solves 64): solved in column groups of MAX_COLUMNS, equal to the
+    reference's sweeps over all columns at once within 1e-12 (float64)."""
+    n, nb, k, bw_pad, _ = TWIN_CASES["c6_S256"]
+    pat, dinv, pbelow, dinv_j, pbelow_j = _panels_of(n, nb, k, c, bw_pad)
+    b = np.random.default_rng(c).normal(size=(n, c))
+    x = tb.band_solve_panels(dinv, pbelow, torch.as_tensor(pat.perm),
+                             torch.as_tensor(pat.inv_perm), torch.as_tensor(b), n)
+    mp, s, _ = dinv.shape
+    bp = np.zeros((mp * s, c))
+    bp[:n] = b[pat.perm]
+    y_j = jb.panel_lower_solve(dinv_j, pbelow_j, jnp.asarray(bp.reshape(mp, s, c)))
+    x_j = np.asarray(jb.panel_upper_solve(dinv_j, pbelow_j, y_j)).reshape(mp * s, c)
+    assert x.shape == (n, c) and _rel(x.numpy(), x_j[:n][pat.inv_perm]) < 1e-12
+
+
+def _banded_cu_entries():
+    import pathlib
+    import re
+
+    from meshopticalflow_tpu_torch.kernels.build import CSRC
+
+    text = (pathlib.Path(CSRC) / "banded.cu").read_text()
+    sweeps = set(re.findall(r"^BANDED_SWEEP_ENTRY\((\w+), (\w+),", text, re.M))
+    factors = set(re.findall(r"^int band_factor_(\w+)\(", text, re.M))
+    return sweeps, factors
+
+
+_SWEEP_FORMS = [("float32", "float32"), ("float64", "float64"), ("bfloat16", "float32"),
+                ("bfloat16", "float64")]
+
+
+@pytest.mark.parametrize("form", [f"panel_sweep/{p}/{t}" for p, t in _SWEEP_FORMS]
+                         + ["band_factor/float32", "band_factor/float64"])
+def test_banded_cu_exports_each_form_the_wrapper_binds(form):
+    """Each (panel, rhs) type pair the wrapper launches, and each factor type,
+    has its entry point in csrc/banded.cu, and banded.cu exports no other
+    (the library binds them all on the card's first load)."""
+    from meshopticalflow_tpu_torch.kernels import banded as kb
+
+    sweeps, factors = _banded_cu_entries()
+    tag = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
+    assert sweeps == {(tag[p], tag[t]) for p, t in kb.SWEEP_TYPES}
+    assert factors == {"f32", "f64"}
+    kind, *types = form.split("/")
+    dts = [getattr(torch, t) for t in types]
+    if kind == "panel_sweep":
+        assert tuple(dts) in kb.SWEEP_TYPES and (tag[dts[0]], tag[dts[1]]) in sweeps
+    else:
+        assert tag[dts[0]] in factors

@@ -778,3 +778,153 @@ def test_cuda_march_lane_counts(lanes):
     assert stats["lane_steps"] == int(ref_steps.sum())
     assert stats["max_lane_steps"] == int(ref_steps.max())
     assert stats["lane_steps"] <= stats["warp_slots"] and stats["warp_slots"] % 32 == 0
+
+
+# -- the banded Cholesky kernels (csrc/banded.cu) ---------------------------------
+
+# (m, nb, bw, k): bw == S (the smoothing c1's band, the flow c1's), bw > S
+# (k capped at 8, the window shifts by S a panel), and m % k != 0; nb 128,
+# the block of every band layout the port builds
+BANDED_SHAPES = {"bw_eq_S": (97, 128, 256, 2), "flow_c1": (288, 128, 768, 6),
+                 "bw_gt_S": (37, 128, 1152, 8)}
+# max |kernel - twin| / max |twin|: the two sum in other orders (cuBLAS,
+# cuSOLVER against the kernels' fixed orders)
+BANDED_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def _band_blocks(shape, dtype, indefinite=False):
+    from meshopticalflow_tpu_torch.utils.testing import band_test_blocks
+
+    m, nb, bw, _ = BANDED_SHAPES[shape]
+    return torch.as_tensor(band_test_blocks(m, nb, bw, seed=m, indefinite=indefinite)) \
+        .to(device="cuda", dtype=dtype)
+
+
+def _rel_err(a, b):
+    return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", list(BANDED_SHAPES))
+def test_cuda_band_factor_matches_plain(shape, dtype):
+    _require_card()
+    from meshopticalflow_tpu_torch.kernels import banded as kb
+
+    _, nb, bw, _ = BANDED_SHAPES[shape]
+    s = _band_blocks(shape, dtype)
+    before, plain_before = kb.band_factor.launches, kb.counts()["plain_on_cuda"]
+    l_k, ok_k = kb.band_factor(s, 0.0, nb, bw)
+    torch.cuda.synchronize()
+    assert kb.band_factor.launches == before + 1
+    assert kb.counts()["plain_on_cuda"] == plain_before
+    l_p, ok_p = kb.band_cholesky_plain(s, 0.0, nb, bw)
+    assert ok_k.device.type == "cuda" and bool(ok_k) and bool(ok_p)
+    assert l_k.dtype == dtype and l_k.shape == s.shape
+    assert _rel_err(l_k, l_p) <= BANDED_TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [1, 4, 6, 8, 32])
+@pytest.mark.parametrize("panels,rhs", [(torch.float32, torch.float32),
+                                        (torch.float64, torch.float64),
+                                        (torch.bfloat16, torch.float32),
+                                        (torch.bfloat16, torch.float64)])
+@pytest.mark.parametrize("shape", ["bw_eq_S", "bw_gt_S"])
+def test_cuda_panel_sweep_matches_plain(shape, panels, rhs, c):
+    """Both sweeps, each from the same input as its twin; bf16 panels widened
+    into the rhs type as the twin widens them."""
+    _require_card()
+    from meshopticalflow_tpu_torch.kernels import banded as kb
+    from meshopticalflow_tpu_torch.solvers.banded import build_solve_panels
+
+    _, nb, bw, k = BANDED_SHAPES[shape]
+    l_blocks, _ = kb.band_cholesky_plain(_band_blocks(shape, torch.float64), 0.0, nb, bw)
+    dinv, pbelow = (t.to(panels) for t in build_solve_panels(l_blocks, k))
+    mp, s, _ = dinv.shape
+    assert (bw > s) == (shape == "bw_gt_S")
+    b = torch.as_tensor(np.random.default_rng(c).standard_normal((mp, s, c))) \
+        .to(device="cuda", dtype=rhs)
+    for upper, plain in ((False, kb.panel_lower_solve_plain), (True, kb.panel_upper_solve_plain)):
+        before = kb.panel_sweep.launches
+        out = kb.panel_sweep(dinv, pbelow, b, upper)
+        torch.cuda.synchronize()
+        assert kb.panel_sweep.launches == before + 1
+        ref = plain(dinv, pbelow, b)
+        assert out.dtype == rhs and out.shape == b.shape
+        assert _rel_err(out, ref) <= BANDED_TOL[rhs], upper
+
+
+@pytest.mark.gpu
+def test_cuda_banded_runs_agree_bit_for_bit():
+    _require_card()
+    from meshopticalflow_tpu_torch.kernels import banded as kb
+    from meshopticalflow_tpu_torch.solvers.banded import build_solve_panels
+
+    _, nb, bw, k = BANDED_SHAPES["flow_c1"]
+    s = _band_blocks("flow_c1", torch.float32)
+    (l1, ok1), (l2, ok2) = kb.band_factor(s, 0.0, nb, bw), kb.band_factor(s, 0.0, nb, bw)
+    assert torch.equal(l1, l2) and bool(ok1) and bool(ok2)
+    dinv, pbelow = build_solve_panels(l1, k)
+    b = torch.randn((dinv.shape[0], dinv.shape[1], 4), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+    for upper in (False, True):
+        assert torch.equal(kb.panel_sweep(dinv, pbelow, b, upper),
+                           kb.panel_sweep(dinv, pbelow, b, upper))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_band_factor_breakdown_then_shift(dtype):
+    """An indefinite system: the ok flag goes false on the device and the
+    factor holds the twin's stand-ins (identity, zero) from the bad step on;
+    the shift ladder's next rungs (solvers/banded.py:BandedCholeskySolver)
+    factor it, as the twin does."""
+    _require_card()
+    from meshopticalflow_tpu_torch.kernels import banded as kb
+
+    m, nb, bw, _ = BANDED_SHAPES["bw_eq_S"]
+    s = _band_blocks("bw_eq_S", dtype, indefinite=True)
+    l_k, ok_k = kb.band_factor(s, 0.0, nb, bw)
+    l_p, ok_p = kb.band_cholesky_plain(s, 0.0, nb, bw)
+    assert ok_k.device.type == "cuda" and not bool(ok_k) and not bool(ok_p)
+    assert bool(torch.isfinite(l_k).all())
+    bad = m // 2
+    assert torch.equal(l_k[bad, :nb], torch.eye(nb, dtype=dtype, device="cuda"))
+    assert not l_k[bad, nb:].any()
+    assert _rel_err(l_k[:bad], l_p[:bad]) <= BANDED_TOL[dtype]
+    dmax = float(s.abs().max())
+    for rel in (1e-6, 1e-4, 1e-2, 1.0, 4.0):
+        l_k, ok_k = kb.band_factor(s, rel * dmax, nb, bw)
+        l_p, ok_p = kb.band_cholesky_plain(s, rel * dmax, nb, bw)
+        assert bool(ok_k) == bool(ok_p)
+        if bool(ok_k):
+            break
+    assert bool(ok_k) and rel == 1.0
+    assert _rel_err(l_k, l_p) <= BANDED_TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_cuda_banded_wrappers_refuse():
+    """No twin on the card: mixed devices, a non-contiguous operand, c > 32
+    and mismatched panel types raise, and nothing launches."""
+    _require_card()
+    from meshopticalflow_tpu_torch.kernels import banded as kb
+
+    dev = "cuda"
+    dinv = torch.zeros((3, 64, 64), device=dev)
+    pbelow = torch.zeros((3, 64, 64), device=dev)
+    b = torch.zeros((3, 64, 2), device=dev)
+    before = (kb.panel_sweep.launches, kb.counts()["plain_on_cuda"])
+    with pytest.raises(ValueError):
+        kb.panel_sweep(dinv, pbelow.cpu(), b, False)
+    with pytest.raises(ValueError):
+        kb.panel_sweep(dinv.transpose(1, 2), pbelow, b, False)
+    with pytest.raises(ValueError):
+        kb.panel_sweep(dinv, pbelow, torch.zeros((3, 64, 33), device=dev), True)
+    with pytest.raises(TypeError):
+        kb.panel_sweep(dinv, pbelow.double(), b, True)
+    with pytest.raises(ValueError):
+        kb.band_factor(torch.zeros((4, 256, 128), device=dev).transpose(1, 2).contiguous()
+                       .transpose(1, 2), 0.0, 128, 128)
+    assert (kb.panel_sweep.launches, kb.counts()["plain_on_cuda"]) == before
