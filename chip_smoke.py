@@ -1015,6 +1015,7 @@ def drive(spmv, mesh, paths, size, cfg, tag: str, n: int,
     import torch
     from meshopticalflow_tpu_torch.flow.pipeline import FlowProblem
     from meshopticalflow_tpu_torch.io.png import write_png_rgb
+    from meshopticalflow_tpu_torch.utils import spans
 
     cfg = dataclasses.replace(cfg, artifact_cache=False)
     torch.cuda.synchronize()
@@ -1030,9 +1031,11 @@ def drive(spmv, mesh, paths, size, cfg, tag: str, n: int,
         res = prob.run()
     torch.cuda.synchronize()
     run_s = time.time() - t0
+    exhausted = spans.counter("halfway.exhausted_lanes")
     t0 = time.time()
     blend = prob.halfway_texture()
     out_s = time.time() - t0
+    exhausted = spans.counter("halfway.exhausted_lanes") - exhausted
     counts = launch_counts(spmv)
     write_png_rgb(os.path.join(WORK, f"halfway_{tag}_{size}.png"), np.flipud(blend))
     total_s = init_s + run_s + out_s
@@ -1047,7 +1050,7 @@ def drive(spmv, mesh, paths, size, cfg, tag: str, n: int,
                e2e_texels_per_sec=size * size / total_s,
                init_profile=prob.init_profile,
                levels=[{k: m[k] for k in keys} for m in res.metrics],
-               halfway_exhausted=prob.last_advect_stats["exhausted"],
+               halfway_exhausted=exhausted,
                launches=counts, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     hier = prob.hier
     if hier is not None:

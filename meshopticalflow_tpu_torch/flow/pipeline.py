@@ -54,6 +54,7 @@ device cache (utils/devcache.py), as the reference package serves them.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import glob
 import hashlib
@@ -94,7 +95,7 @@ from meshopticalflow_tpu_torch.solvers.twolevel import (
     TwoLevelSolver, build_transfer, padded_to_csr)
 from meshopticalflow_tpu_torch.ops.dataterm import data_term_blocks
 from meshopticalflow_tpu_torch.ops.ell import ell_matvec
-from meshopticalflow_tpu_torch.utils import devcache
+from meshopticalflow_tpu_torch.utils import devcache, spans
 from meshopticalflow_tpu_torch.utils.artifacts import cached, file_hash, key_of
 
 
@@ -418,18 +419,17 @@ def _level_step(arrays: ProblemArrays, coeffs, tfield, s_weight, v_weight,
     ``on_resampled`` (when given) receives the advected per-vertex signals
     (V, 2C), the reference's --debug dump (OpticalFlow.cpp:458-465).
 
-    Returns (new_coeffs, new_tfield, metrics, x) with x the solved direction."""
+    Returns (new_coeffs, new_tfield, metrics, x) with x the solved direction.
+    The stage spans synchronize in every run: their seconds are the
+    metrics' ``smooth_seconds``, ``trace_seconds`` and ``solve_seconds``."""
     device = coeffs.device
-    _t0 = time.time()
-    smoothed, sm_stats, sm_info = _stage_smooth(arrays, s_weight, config, hier)
-    _sync(device)
-    _t1 = time.time()
-    d_blocks, rhs_t, align_err, exhausted, (t1, p1) = _stage_resample(
-        arrays, tfield, smoothed, config)
-    if on_resampled is not None:
-        on_resampled(_advected_vertex_signals(arrays, smoothed, t1, p1))
-    _sync(device)
-    _t2 = time.time()
+    with spans.timed("level.smooth", sync=device, always_sync=True) as smooth_span:
+        smoothed, sm_stats, sm_info = _stage_smooth(arrays, s_weight, config, hier)
+    with spans.timed("level.trace", sync=device, always_sync=True) as trace_span:
+        d_blocks, rhs_t, align_err, exhausted, (t1, p1) = _stage_resample(
+            arrays, tfield, smoothed, config)
+        if on_resampled is not None:
+            on_resampled(_advected_vertex_signals(arrays, smoothed, t1, p1))
     solve_kw = dict(nd=nd, refine_tol=config.flow_refine_tol,
                     refine_floor=config.flow_refine_floor)
     if hier is not None:
@@ -439,20 +439,19 @@ def _level_step(arrays: ProblemArrays, coeffs, tfield, s_weight, v_weight,
                         mg_c1_bf16=config.mg_c1_bf16, mg_nu=config.mg_nu,
                         mg_fine_cheb=config.mg_fine_cheb)
     flow = {}
-    new_coeffs, new_tfield, cg_stats, x = update_optical_flow(
-        arrays.basis, coeffs, d_blocks, rhs_t, v_weight,
-        cg_tol=config.cg_tol, cg_max_iters=config.cg_max_iters,
-        use_host_cholesky=config.use_host_cholesky,
-        refine=config.flow_refine, x0=warm_x, solve_info=flow, rows=arrays.frows,
-        **solve_kw)
-    _sync(device)
-    _t3 = time.time()
+    with spans.timed("level.solve", sync=device, always_sync=True) as solve_span:
+        new_coeffs, new_tfield, cg_stats, x = update_optical_flow(
+            arrays.basis, coeffs, d_blocks, rhs_t, v_weight,
+            cg_tol=config.cg_tol, cg_max_iters=config.cg_max_iters,
+            use_host_cholesky=config.use_host_cholesky,
+            refine=config.flow_refine, x0=warm_x, solve_info=flow, rows=arrays.frows,
+            **solve_kw)
     metrics = dict(
         smooth_iters=float(sm_stats.iterations), smooth_res=float(sm_stats.rel_residual),
         flow_iters=float(cg_stats.iterations), flow_res=float(cg_stats.rel_residual),
         trace_exhausted=float(exhausted),
-        smooth_seconds=_t1 - _t0, trace_seconds=_t2 - _t1,
-        solve_seconds=_t3 - _t2,
+        smooth_seconds=smooth_span.seconds, trace_seconds=trace_span.seconds,
+        solve_seconds=solve_span.seconds,
         alignment_error=float(align_err))
     if flow:
         metrics.update(coarse_factor_s=flow["factor_s"], flow_gb_per_iter=flow["gb_per_iter"])
@@ -560,7 +559,13 @@ class FlowProblem:
     is bypassed, and the texel lanes of the final marches are split over
     the ranks. At two or more ranks "xla" on the three-level cycles (or
     without a hierarchy) also splits the level step's rows
-    (``_places_rows``; ``arrays.vrows`` / ``arrays.frows``)."""
+    (``_places_rows``; ``arrays.vrows`` / ``arrays.frows``).
+
+    ``job`` (utils/spans.py) is the id that the problem's init, run and
+    halfway spans share; the constructors open the ``init`` span around the
+    whole set-up and pass theirs, a direct construction takes a fresh one.
+    ``init_profile`` holds the seconds of the init spans, read in every run
+    (their synchronize only while the span record is on)."""
 
     def __init__(
         self,
@@ -577,6 +582,7 @@ class FlowProblem:
         cache_key: Optional[str] = None,
         signals_key: Optional[str] = None,
         device_group=None,
+        job: Optional[int] = None,
     ):
         require_supported(config)
         if device_group is not None and config.flow_backend == "mf":
@@ -596,58 +602,52 @@ class FlowProblem:
         self.vertices = vertices
         self._cache_key = cache_key if config.artifact_cache else None
         self._signals_key = signals_key if config.artifact_cache else None
+        self.job = spans.new_job() if job is None else job
         self.init_profile: Dict[str, float] = {}
         kw = dict(dtype=self.dtype, device=self.device)
-        _t = time.time()
+        step = self._init_step
 
-        def _mark(name):
-            nonlocal _t
-            _sync(self.device)
-            self.init_profile[name] = time.time() - _t
-            _t = time.time()
-
-        tm, smooth_ops = self._cached(
-            self._devkey("tables"),
-            lambda: (make_trace_mesh(mesh, self.dtype, self.device),
-                     make_smoothing_operators(mesh, self.dtype, self.device)))
-        _mark("device_tables")
-        self.basis_host, basis = self._build_basis_cached(mesh, config)
-        _mark("basis")
-        self.hier = None
-        if root is not None and config.use_multigrid:
-            t_coarse = time.time()
-            self.hier = self.attach_coarse_space(basis, smooth_ops, *root)
-            _t = time.time()
-            self.init_profile["coarse"] = _t - t_coarse
-        arrays = ProblemArrays(tm=tm, smooth_ops=smooth_ops, basis=basis, signals=None,
-                               area=torch.as_tensor(mesh.area).to(**kw))
-        if self._places_rows():
-            arrays = place_problem(device_group, arrays)
-        arrays.signals = arrays.vrows.local(
-            self._preprocessed_signals(arrays.smooth_ops, signals, arrays.vrows))
+        with spans.timed("init.tables", sync=self.device):
+            with step("init.device_tables", "device_tables"):
+                tm, smooth_ops = self._cached(
+                    self._devkey("tables"),
+                    lambda: (make_trace_mesh(mesh, self.dtype, self.device),
+                             make_smoothing_operators(mesh, self.dtype, self.device)))
+            with step("init.basis", "basis"):
+                self.basis_host, basis = self._build_basis_cached(mesh, config)
+            self.hier = None
+            if root is not None and config.use_multigrid:
+                with step("init.coarse", "coarse"):
+                    self.hier = self.attach_coarse_space(basis, smooth_ops, *root)
+            arrays = ProblemArrays(tm=tm, smooth_ops=smooth_ops, basis=basis, signals=None,
+                                   area=torch.as_tensor(mesh.area).to(**kw))
+            if self._places_rows():
+                arrays = place_problem(device_group, arrays)
+        with step("init.signals", "preprocess_signals"):
+            arrays.signals = arrays.vrows.local(
+                self._preprocessed_signals(arrays.smooth_ops, signals, arrays.vrows))
         self.arrays = arrays
-        _mark("preprocess_signals")
         self.nd = None
         self._ensure_nd()
-        _t = time.time()
 
         self.texture_source = texture_source
-        self.textures = None if textures is None else self._cached(
-            self._devkey("textures", self._signals_key) if self._signals_key else None,
-            lambda: torch.as_tensor(np.asarray(textures)).to(**kw))
-        self.tri_uvs = None if tri_uvs is None else \
-            torch.as_tensor(np.asarray(tri_uvs)).to(**kw)
-        self.vertex_colors = None if vertex_colors is None else \
-            torch.as_tensor(np.asarray(vertex_colors)).to(**kw)
+        with step("init.textures", "exp_remap"):
+            self.textures = None if textures is None else self._cached(
+                self._devkey("textures", self._signals_key) if self._signals_key else None,
+                lambda: torch.as_tensor(np.asarray(textures)).to(**kw))
+            self.tri_uvs = None if tri_uvs is None else \
+                torch.as_tensor(np.asarray(tri_uvs)).to(**kw)
+            self.vertex_colors = None if vertex_colors is None else \
+                torch.as_tensor(np.asarray(vertex_colors)).to(**kw)
         self._exp_exhausted = None
-        if texture_source is not None:
-            # Keyed by the atlas dimensions: a texel count alone can collide
-            # across W x H layouts of the same mesh.
-            self.src_t, self.src_p, self._exp_exhausted = self._cached(
-                self._devkey("texsrc", config.pad_radius, int(texture_source.width),
-                             int(texture_source.height)),
-                self._texel_table)
-        _mark("exp_remap")
+        with step("init.texels", "exp_remap"):
+            if texture_source is not None:
+                # Keyed by the atlas dimensions: a texel count alone can collide
+                # across W x H layouts of the same mesh.
+                self.src_t, self.src_p, self._exp_exhausted = self._cached(
+                    self._devkey("texsrc", config.pad_radius, int(texture_source.width),
+                                 int(texture_source.height)),
+                    self._texel_table)
         self.coeffs = torch.zeros(basis.n_coeffs, **kw)
         self.tfield = torch.zeros((mesh.n_triangles, 2), **kw)
         self._warm_x = None
@@ -655,6 +655,14 @@ class FlowProblem:
         self._quad_tables = None
 
     # -- construction ----------------------------------------------------
+
+    @contextlib.contextmanager
+    def _init_step(self, name: str, key: str):
+        """An init span ``name``, synchronized while the span record is on,
+        whose seconds add to ``init_profile[key]``."""
+        with spans.timed(name, sync=self.device) as step:
+            yield
+        self.init_profile[key] = self.init_profile.get(key, 0.0) + step.seconds
 
     def _places_rows(self) -> bool:
         """Whether the level step's rows are split over the device group:
@@ -737,23 +745,19 @@ class FlowProblem:
                          smooth_kind) -> Hierarchy:
         cfg, dev, dt = self.config, self.device, self.dtype
         tris0, verts0, parent, bary = root
-        _t = time.time()
 
-        def mark(name):
-            nonlocal _t
-            _sync(dev)
-            self.init_profile[name] = time.time() - _t
-            _t = time.time()
+        def step(key):
+            return self._init_step("init." + key, key)
 
         def compute():
             # float64 host arrays; the handles below cast to the working dtype
             cfg64 = dataclasses.replace(cfg, dtype="float64")
-            coarse_mesh = build_mesh(tris0, vertices=verts0)
-            cs = build_coarse_space(cfg64, self.mesh, self.basis_host, coarse_mesh, parent,
-                                    bary)
-            mark("coarse_space")
-            vc = build_vertex_coarse(cfg64, self.mesh, coarse_mesh, parent, bary)
-            mark("vertex_coarse")
+            with step("coarse_space"):
+                coarse_mesh = build_mesh(tris0, vertices=verts0)
+                cs = build_coarse_space(cfg64, self.mesh, self.basis_host, coarse_mesh,
+                                        parent, bary)
+            with step("vertex_coarse"):
+                vc = build_vertex_coarse(cfg64, self.mesh, coarse_mesh, parent, bary)
             cd = cs.coarse_dev
             out = dict(
                 ch_name=np.frombuffer(cs.coarse_host.name.encode(), np.uint8),
@@ -767,74 +771,75 @@ class FlowProblem:
                 vc_p0_wt=_to_numpy(vc.p0_wt), vc_m0_csr=vc.m0_csr, vc_k0_csr=vc.k0_csr,
                 has_patch=np.asarray(VectorFieldMode(cfg.vf_mode) == VectorFieldMode.WHITNEY))
             if bool(out["has_patch"]):
-                pl, patch_ids = build_patch_level(cfg64, coarse_mesh, cs)
-                vp = build_vertex_patch_level_from(cfg64, vc.m0_csr, vc.k0_csr, coarse_mesh,
-                                                   patch_ids)
-                out.update(q2_idx=_to_numpy(pl.q2_idx), q2_wt=_to_numpy(pl.q2_wt),
-                           s2=_to_numpy(pl.s2_dense), p12_idx=pl.p12_idx, p12_wt=pl.p12_wt,
-                           vp_m2=_to_numpy(vp.m2_dense), vp_k2=_to_numpy(vp.k2_dense),
-                           vp_p12_idx=vp.p12_idx, vp_p12_wt=vp.p12_wt)
-                mark("patch_levels")
+                with step("patch_levels"):
+                    pl, patch_ids = build_patch_level(cfg64, coarse_mesh, cs)
+                    vp = build_vertex_patch_level_from(cfg64, vc.m0_csr, vc.k0_csr,
+                                                       coarse_mesh, patch_ids)
+                    out.update(q2_idx=_to_numpy(pl.q2_idx), q2_wt=_to_numpy(pl.q2_wt),
+                               s2=_to_numpy(pl.s2_dense), p12_idx=pl.p12_idx,
+                               p12_wt=pl.p12_wt, vp_m2=_to_numpy(vp.m2_dense),
+                               vp_k2=_to_numpy(vp.k2_dense), vp_p12_idx=vp.p12_idx,
+                               vp_p12_wt=vp.p12_wt)
             return out
 
-        t_load = time.time()
-        d = cached("coarse", ck, compute, enabled=bool(ck),
-                   lazy_keys=("s2", "vp_m2", "vp_k2") if defer_dense else ())
-        self.init_profile["coarse_load"] = time.time() - t_load
-        _t = time.time()
-        cs = CoarseSpace(
-            BasisHost(bytes(d["ch_name"]).decode(), int(d["ch_n"]), d["ch_p_idx"],
-                      d["ch_p_wt"], d["ch_smooth"]),
-            BasisDevice(p_idx=_dev(d["ch_p_idx"], torch.int64, dev),
-                        p_wt=_dev(d["ch_p_wt"], dt, dev),
-                        ell_cols=_dev(d["cd_ell_cols"], torch.int32, dev),
-                        s_vals=_dev(d["cd_s_vals"], dt, dev),
-                        diag_slot=_dev(d["cd_diag_slot"], torch.int64, dev),
-                        dt_slots=_dev(d["cd_dt_slots"], torch.int64, dev),
-                        n_coeffs=int(d["ch_n"])),
-            d["p0"], d["p0_idx"], d["p0_wt"])
-        vc = VertexCoarse(cols0=_dev(d["vc_cols0"], torch.int32, dev),
-                          m0_vals=_dev(d["vc_m0"], dt, dev), k0_vals=_dev(d["vc_k0"], dt, dev),
-                          p0_idx=_dev(d["vc_p0_idx"], torch.int32, dev),
-                          p0_wt=_dev(d["vc_p0_wt"], dt, dev),
-                          m0_csr=d["vc_m0_csr"], k0_csr=d["vc_k0_csr"])
-        patch = vp = None
-        if bool(d["has_patch"]):
-            # fallback-only blocks stay on the host under the exact c1 solve
-            dense = (lambda a: a) if defer_dense else (lambda a: _dev(a, dt, dev))
-            patch = PatchLevel(q2_idx=_dev(d["q2_idx"], torch.int64, dev),
-                               q2_wt=_dev(d["q2_wt"], dt, dev), s2_dense=dense(d["s2"]),
-                               p12_idx=d["p12_idx"], p12_wt=d["p12_wt"])
-            vp = VertexPatchLevel(m2_dense=dense(d["vp_m2"]), k2_dense=dense(d["vp_k2"]),
-                                  p12_idx=d["vp_p12_idx"], p12_wt=d["vp_p12_wt"])
-        mark("coarse_upload")
+        with step("coarse_load"):
+            d = cached("coarse", ck, compute, enabled=bool(ck),
+                       lazy_keys=("s2", "vp_m2", "vp_k2") if defer_dense else ())
+        with step("coarse_upload"):
+            cs = CoarseSpace(
+                BasisHost(bytes(d["ch_name"]).decode(), int(d["ch_n"]), d["ch_p_idx"],
+                          d["ch_p_wt"], d["ch_smooth"]),
+                BasisDevice(p_idx=_dev(d["ch_p_idx"], torch.int64, dev),
+                            p_wt=_dev(d["ch_p_wt"], dt, dev),
+                            ell_cols=_dev(d["cd_ell_cols"], torch.int32, dev),
+                            s_vals=_dev(d["cd_s_vals"], dt, dev),
+                            diag_slot=_dev(d["cd_diag_slot"], torch.int64, dev),
+                            dt_slots=_dev(d["cd_dt_slots"], torch.int64, dev),
+                            n_coeffs=int(d["ch_n"])),
+                d["p0"], d["p0_idx"], d["p0_wt"])
+            vc = VertexCoarse(cols0=_dev(d["vc_cols0"], torch.int32, dev),
+                              m0_vals=_dev(d["vc_m0"], dt, dev),
+                              k0_vals=_dev(d["vc_k0"], dt, dev),
+                              p0_idx=_dev(d["vc_p0_idx"], torch.int32, dev),
+                              p0_wt=_dev(d["vc_p0_wt"], dt, dev),
+                              m0_csr=d["vc_m0_csr"], k0_csr=d["vc_k0_csr"])
+            patch = vp = None
+            if bool(d["has_patch"]):
+                # fallback-only blocks stay on the host under the exact c1 solve
+                dense = (lambda a: a) if defer_dense else (lambda a: _dev(a, dt, dev))
+                patch = PatchLevel(q2_idx=_dev(d["q2_idx"], torch.int64, dev),
+                                   q2_wt=_dev(d["q2_wt"], dt, dev), s2_dense=dense(d["s2"]),
+                                   p12_idx=d["p12_idx"], p12_wt=d["p12_wt"])
+                vp = VertexPatchLevel(m2_dense=dense(d["vp_m2"]),
+                                      k2_dense=dense(d["vp_k2"]),
+                                      p12_idx=d["vp_p12_idx"], p12_wt=d["vp_p12_wt"])
         if flow_kind == "mg3":
-            patch.mg_pack = build_mg_pack(basis.ell_cols, cs.coarse_dev.ell_cols, cs.p0,
-                                          patch.p12_idx, patch.p12_wt,
-                                          int(patch.s2_dense.shape[0]), dt, dev)
-            mark("mg_pack_flow")
-            patch.c1_band = build_c1_band(cs.coarse_dev.ell_cols, device=dev)
-            mark("c1_band_flow")
+            with step("mg_pack_flow"):
+                patch.mg_pack = build_mg_pack(basis.ell_cols, cs.coarse_dev.ell_cols, cs.p0,
+                                              patch.p12_idx, patch.p12_wt,
+                                              int(patch.s2_dense.shape[0]), dt, dev)
+            with step("c1_band_flow"):
+                patch.c1_band = build_c1_band(cs.coarse_dev.ell_cols, device=dev)
         else:
-            cs.transfer = build_transfer(cs.p0, dt, dev)
-            if flow_kind == "xla":
-                patch.transfer = build_transfer(
-                    padded_to_csr(patch.p12_idx, patch.p12_wt, patch.s2_dense.shape[0]),
-                    dt, dev)
-            mark("transfer_flow")
+            with step("transfer_flow"):
+                cs.transfer = build_transfer(cs.p0, dt, dev)
+                if flow_kind == "xla":
+                    patch.transfer = build_transfer(
+                        padded_to_csr(patch.p12_idx, patch.p12_wt, patch.s2_dense.shape[0]),
+                        dt, dev)
         p0v = padded_to_csr(vc.p0_idx, vc.p0_wt, vc.cols0.shape[0])
         if smooth_kind == "mg3":
-            vc.mg_pack = build_mg_pack(smooth_ops.cols, vc.cols0, p0v, vp.p12_idx,
-                                       vp.p12_wt, int(vp.m2_dense.shape[0]), dt, dev)
-            mark("mg_pack_smooth")
-            vc.c1_band = build_c1_band(vc.cols0, device=dev)
-            mark("c1_band_smooth")
+            with step("mg_pack_smooth"):
+                vc.mg_pack = build_mg_pack(smooth_ops.cols, vc.cols0, p0v, vp.p12_idx,
+                                           vp.p12_wt, int(vp.m2_dense.shape[0]), dt, dev)
+            with step("c1_band_smooth"):
+                vc.c1_band = build_c1_band(vc.cols0, device=dev)
         else:
-            vc.transfer = build_transfer(p0v, dt, dev)
-            if smooth_kind == "xla":
-                vp.transfer = build_transfer(
-                    padded_to_csr(vp.p12_idx, vp.p12_wt, vp.m2_dense.shape[0]), dt, dev)
-            mark("transfer_smooth")
+            with step("transfer_smooth"):
+                vc.transfer = build_transfer(p0v, dt, dev)
+                if smooth_kind == "xla":
+                    vp.transfer = build_transfer(
+                        padded_to_csr(vp.p12_idx, vp.p12_wt, vp.m2_dense.shape[0]), dt, dev)
         return Hierarchy(coarse=cs, patch=patch, vcoarse=vc, vpatch=vp,
                          flow_kind=flow_kind, smooth_kind=smooth_kind)
 
@@ -892,15 +897,13 @@ class FlowProblem:
         cfg, basis = self.config, self.arrays.basis
         ck = key_of("ndpack", self._cache_key, int(cfg.vf_mode), int(cfg.connection_mode),
                     cfg.divergence_free, 64) if self._cache_key else ""
-        t0 = time.time()
-        self.nd = self._cached(
-            ("nd_dev", ck) if ck else None,
-            lambda: build_nd_context(self.mesh.triangles, self.vertices,
-                                     self.basis_host.p_idx, basis.ell_cols, basis.n_coeffs,
-                                     diag_slot=basis.diag_slot, leaf=64, cache_key=ck,
-                                     device=self.device))
-        _sync(self.device)
-        self.init_profile["nd_pack"] = time.time() - t0
+        with self._init_step("init.nd_pack", "nd_pack"):
+            self.nd = self._cached(
+                ("nd_dev", ck) if ck else None,
+                lambda: build_nd_context(self.mesh.triangles, self.vertices,
+                                         self.basis_host.p_idx, basis.ell_cols,
+                                         basis.n_coeffs, diag_slot=basis.diag_slot, leaf=64,
+                                         cache_key=ck, device=self.device))
         return self.nd
 
     @classmethod
@@ -915,54 +918,58 @@ class FlowProblem:
         ``init_profile["raster_path"]`` says which rasterizer built the
         table: "native" (native/meshhost.cpp) or "numpy"."""
         use_cache = config.artifact_cache
-        _t0 = time.time()
-        mesh_hash = file_hash(mesh_path)
-        geo_key = key_of("geom", mesh_hash, config.subdivide_edge_length)
-        gd = devcache.get_or_build(
-            ("geom_host", geo_key) if use_cache else None,
-            lambda: cached("geom", geo_key,
-                           lambda: _texture_geometry(mesh_path, config.subdivide_edge_length),
-                           enabled=use_cache),
-            "host")
-        tris, verts, uvs = gd["tris"], gd["verts"], gd["uvs"]
-        mesh = HostMesh(triangles=np.asarray(tris, np.int32), g=gd["g"], g_inv=gd["g_inv"],
-                        area=gd["area"], opp=np.asarray(gd["opp"], np.int32),
-                        xform_linear=gd["xform_linear"], xform_const=gd["xform_const"],
-                        n_vertices=int(gd["n_vertices"]))
-        root = (gd["tris0"], gd["verts0"], gd["parent"], gd["bary"]) \
-            if bool(gd["subdivided"]) else None
-        geom_s = time.time() - _t0
-        tex0 = read_png_rgb(texture_paths[0])
-        tex1 = read_png_rgb(texture_paths[1])
-        if tex0.shape != tex1.shape:
-            raise ValueError(f"texture shapes differ: {tex0.shape} vs {tex1.shape}")
-        n_vertices = int(tris.max()) + 1
-        _t0 = time.time()
-        tex_hashes = (file_hash(texture_paths[0]), file_hash(texture_paths[1]))
-        signals = cached(
-            "bake", key_of("bake", geo_key, *tex_hashes, config.nearest),
-            lambda: dict(signals=np.stack([
-                sample_texture_to_vertices(tris, uvs, t, n_vertices, not config.nearest)
-                for t in (tex0, tex1)])),
-            enabled=use_cache)["signals"]
-        bake_s = time.time() - _t0
-        h, w = tex0.shape[:2]
-        _t0 = time.time()
+        job = spans.new_job()
+        with spans.job(job), spans.span("init"):
+            with spans.timed("init.geometry") as geom:
+                mesh_hash = file_hash(mesh_path)
+                geo_key = key_of("geom", mesh_hash, config.subdivide_edge_length)
+                gd = devcache.get_or_build(
+                    ("geom_host", geo_key) if use_cache else None,
+                    lambda: cached("geom", geo_key,
+                                   lambda: _texture_geometry(mesh_path,
+                                                             config.subdivide_edge_length),
+                                   enabled=use_cache),
+                    "host")
+                tris, verts, uvs = gd["tris"], gd["verts"], gd["uvs"]
+                mesh = HostMesh(triangles=np.asarray(tris, np.int32), g=gd["g"],
+                                g_inv=gd["g_inv"], area=gd["area"],
+                                opp=np.asarray(gd["opp"], np.int32),
+                                xform_linear=gd["xform_linear"],
+                                xform_const=gd["xform_const"],
+                                n_vertices=int(gd["n_vertices"]))
+                root = (gd["tris0"], gd["verts0"], gd["parent"], gd["bary"]) \
+                    if bool(gd["subdivided"]) else None
+            with spans.timed("init.decode") as decode:
+                tex0 = read_png_rgb(texture_paths[0])
+                tex1 = read_png_rgb(texture_paths[1])
+            if tex0.shape != tex1.shape:
+                raise ValueError(f"texture shapes differ: {tex0.shape} vs {tex1.shape}")
+            n_vertices = int(tris.max()) + 1
+            with spans.timed("init.bake") as bake:
+                tex_hashes = (file_hash(texture_paths[0]), file_hash(texture_paths[1]))
+                signals = cached(
+                    "bake", key_of("bake", geo_key, *tex_hashes, config.nearest),
+                    lambda: dict(signals=np.stack([
+                        sample_texture_to_vertices(tris, uvs, t, n_vertices, not config.nearest)
+                        for t in (tex0, tex1)])),
+                    enabled=use_cache)["signals"]
+            h, w = tex0.shape[:2]
 
-        def raster():
-            path = "native" if native.get_lib() is not None else "numpy"
-            return rasterize_texture_source(uvs, w, h, config.pad_radius), path
+            def raster():
+                path = "native" if native.get_lib() is not None else "numpy"
+                return rasterize_texture_source(uvs, w, h, config.pad_radius), path
 
-        src, raster_path = devcache.get_or_build(
-            ("texsrc_host", geo_key, w, h, config.pad_radius) if use_cache else None,
-            raster, "host")
-        raster_s = time.time() - _t0
-        problem = cls(config, mesh, signals, vertices=verts, texture_source=src,
-                      tri_uvs=uvs, textures=np.stack([tex0, tex1]), device=device,
-                      root=root, cache_key=geo_key,
-                      signals_key=key_of("sig", geo_key, *tex_hashes),
-                      device_group=device_group)
-        problem.init_profile.update(geom=geom_s, bake=bake_s, raster=raster_s,
+            with spans.timed("init.raster") as rast:
+                src, raster_path = devcache.get_or_build(
+                    ("texsrc_host", geo_key, w, h, config.pad_radius) if use_cache else None,
+                    raster, "host")
+            problem = cls(config, mesh, signals, vertices=verts, texture_source=src,
+                          tri_uvs=uvs, textures=np.stack([tex0, tex1]), device=device,
+                          root=root, cache_key=geo_key,
+                          signals_key=key_of("sig", geo_key, *tex_hashes),
+                          device_group=device_group, job=job)
+        problem.init_profile.update(geom=geom.seconds, decode=decode.seconds,
+                                    bake=bake.seconds, raster=rast.seconds,
                                     raster_path=raster_path)
         return problem
 
@@ -975,28 +982,31 @@ class FlowProblem:
         triangles and vertices, so the pairs of a sequence over one mesh
         (apps/track_sequence.py) share the mesh tables, basis and
         multifrontal pack."""
-        m0 = read_triangle_mesh(path0)
-        m1 = read_triangle_mesh(path1)
-        if m0.vertices.shape != m1.vertices.shape:
-            raise ValueError("vertex counts differ")
-        if not np.array_equal(m0.faces, m1.faces):
-            raise ValueError("triangle indices do not match")
-        if m0.colors is None or m1.colors is None:
-            raise ValueError("inputs must carry per-vertex colors")
-        verts = (m0.vertices + m1.vertices) * 0.5
-        key = None
-        if config.artifact_cache:
-            digest = hashlib.sha1(np.ascontiguousarray(m0.faces, np.int64).tobytes())
-            digest.update(np.ascontiguousarray(verts, np.float64).tobytes())
-            key = key_of("vmesh", digest.hexdigest()[:16])
-        _t0 = time.time()
-        mesh = devcache.get_or_build(("vmesh_host", key) if key else None,
-                                     lambda: build_mesh(m0.faces, vertices=verts), "host")
-        geom_s = time.time() - _t0
-        problem = cls(config, mesh, np.stack([m0.colors, m1.colors]), vertices=verts,
-                      vertex_colors=np.stack([m0.colors, m1.colors]), device=device,
-                      cache_key=key, device_group=device_group)
-        problem.init_profile["geom"] = geom_s
+        job = spans.new_job()
+        with spans.job(job), spans.span("init"):
+            with spans.timed("init.decode") as decode:
+                m0 = read_triangle_mesh(path0)
+                m1 = read_triangle_mesh(path1)
+            if m0.vertices.shape != m1.vertices.shape:
+                raise ValueError("vertex counts differ")
+            if not np.array_equal(m0.faces, m1.faces):
+                raise ValueError("triangle indices do not match")
+            if m0.colors is None or m1.colors is None:
+                raise ValueError("inputs must carry per-vertex colors")
+            verts = (m0.vertices + m1.vertices) * 0.5
+            key = None
+            if config.artifact_cache:
+                digest = hashlib.sha1(np.ascontiguousarray(m0.faces, np.int64).tobytes())
+                digest.update(np.ascontiguousarray(verts, np.float64).tobytes())
+                key = key_of("vmesh", digest.hexdigest()[:16])
+            with spans.timed("init.geometry") as geom:
+                mesh = devcache.get_or_build(("vmesh_host", key) if key else None,
+                                             lambda: build_mesh(m0.faces, vertices=verts),
+                                             "host")
+            problem = cls(config, mesh, np.stack([m0.colors, m1.colors]), vertices=verts,
+                          vertex_colors=np.stack([m0.colors, m1.colors]), device=device,
+                          cache_key=key, device_group=device_group, job=job)
+        problem.init_profile.update(geom=geom.seconds, decode=decode.seconds)
         return problem
 
     def _exp_remap_texels(self) -> None:
@@ -1026,7 +1036,13 @@ class FlowProblem:
         ``debug_dir`` writes the per-level advected signals as colored PLYs
         ``resampled.{S,T}.<level>.ply``, the reference's --debug dumps
         (OpticalFlow.cpp:458-465). Under a device group only rank 0 writes
-        checkpoints and dumps; every rank reads a checkpoint to resume."""
+        checkpoints and dumps; every rank reads a checkpoint to resume. The
+        run is a span ``run`` of the problem's job, a level a span ``level``."""
+        with spans.job(self.job), spans.span("run"):
+            return self._run(verbose, checkpoint_dir, resume, debug_dir)
+
+    def _run(self, verbose: bool, checkpoint_dir: Optional[str], resume: bool,
+             debug_dir: Optional[str]) -> FlowResult:
         cfg = self.config
         writer = self._is_writer()
         halo_group = self.device_group if cfg.flow_backend == "halo" else None
@@ -1050,10 +1066,11 @@ class FlowProblem:
             dump = None if debug_dir is None or not writer else (
                 lambda res, level=level: self._write_debug_dumps(debug_dir, level,
                                                                  _to_numpy(res)))
-            coeffs, tfield, stats, x = _level_step(
-                self.arrays, coeffs, tfield, s_weight, v_weight, cfg, warm_x=warm_x,
-                hier=self.hier, on_resampled=dump, nd=self._ensure_nd(),
-                halo_group=halo_group)
+            with spans.span("level"):
+                coeffs, tfield, stats, x = _level_step(
+                    self.arrays, coeffs, tfield, s_weight, v_weight, cfg, warm_x=warm_x,
+                    hier=self.hier, on_resampled=dump, nd=self._ensure_nd(),
+                    halo_group=halo_group)
             if cfg.flow_warm_start:
                 warm_x = x
             if level == start_level and self._exp_exhausted is not None:
@@ -1123,13 +1140,8 @@ class FlowProblem:
         OpticalFlow.cpp:501-515), one compacted march each. Returns (2, H, W,
         3) float in uv-space row order; unclaimed texels keep the input."""
         h, w = self.texture_source.height, self.texture_source.width
-        t0 = time.time()
-        result = np.stack([_to_numpy(self._advect_one_texture(s, alpha)).reshape(h, w, 3)
-                           for s in range(2)])
-        secs = time.time() - t0
-        self.last_advect_stats = {"seconds": secs,
-                                  "texels_per_sec": 2 * h * w / max(secs, 1e-9)}
-        return result
+        return np.stack([_to_numpy(self._advect_one_texture(s, alpha)).reshape(h, w, 3)
+                         for s in range(2)])
 
     def _advect_one_texture(self, s: int, alpha: float) -> torch.Tensor:
         """Texture ``s`` advected to the halfway point: (H*W, 3) float on the
@@ -1204,43 +1216,56 @@ class FlowProblem:
         Both textures' lanes march in one compacted trace, with per-lane
         flow times -alpha and 1-alpha; under a device group each texture's
         lanes are split over the ranks (``advect_texture_sharded``), which
-        gives every lane the same end point."""
+        gives every lane the same end point.
+
+        The call is a span ``halfway`` of the problem's job, timed on the
+        device too, around ``halfway.march`` (under a group the march and
+        the fetch), ``halfway.fetch``, ``halfway.tail`` (scatter, fill,
+        blend, quantize) and ``halfway.copy`` (the blend to the host); the
+        counters ``halfway.exhausted_lanes``, ``halfway.copies`` and
+        ``halfway.copy_bytes`` add up every call's."""
         cfg = self.config
         src = self.texture_source
         h, w = src.height, src.width
-        _t0 = time.time()
-        self._ensure_advect_order()
-        quads = self._ensure_quad_tables() if not cfg.nearest else (None, None)
-        if self.device_group is not None:
-            from meshopticalflow_tpu_torch.parallel.sharding import advect_texture_sharded
+        cuda = self.device.type == "cuda"
+        with spans.job(self.job), spans.span("halfway", device=cuda):
+            self._ensure_advect_order()
+            quads = self._ensure_quad_tables() if not cfg.nearest else (None, None)
+            if self.device_group is not None:
+                from meshopticalflow_tpu_torch.parallel.sharding import advect_texture_sharded
 
-            (c0, e0), (c1, e1) = (advect_texture_sharded(
-                self.device_group, self.arrays.tm, self.tfield, self.tri_uvs,
-                self.textures[s], self._advect_src_t, self._advect_src_p, length,
-                cfg.flow_min_step, cfg.flow_max_steps, not cfg.nearest, quad=quads[s])
-                for s, length in ((0, -alpha), (1, 1.0 - alpha)))
-            exhausted = e0 + e1
-        else:
-            n = self._advect_src_t.shape[0]
-            t2, p2, times = _halfway_lanes(self._advect_src_t, self._advect_src_p,
-                                           -alpha, 1.0 - alpha)
-            t1, p1, exhausted = flow_field_trace_compacted(
-                self.arrays.tm, self.tfield, times, t2, p2,
-                cfg.flow_min_step, cfg.flow_max_steps)
-            c0 = _fetch_colors(self.tri_uvs, self.textures[0], t1[:n], p1[:n],
-                               not cfg.nearest, quad=quads[0])
-            c1 = _fetch_colors(self.tri_uvs, self.textures[1], t1[n:], p1[n:],
-                               not cfg.nearest, quad=quads[1])
-        if exhausted:
-            print(f"[WARNING] texture advection: {exhausted} texel lanes "
-                  f"hit the step cap", file=sys.stderr)
-        q = _halfway_tail(c0, c1, self._advect_order, self.src_t,
-                          self.textures[0], self.textures[1], h, w)
-        result = _to_numpy(q)
-        secs = time.time() - _t0
-        self.last_advect_stats = {
-            "seconds": secs, "texels_per_sec": 2 * h * w / max(secs, 1e-9),
-            "exhausted": exhausted}
+                with spans.span("halfway.march", device=cuda):
+                    (c0, e0), (c1, e1) = (advect_texture_sharded(
+                        self.device_group, self.arrays.tm, self.tfield, self.tri_uvs,
+                        self.textures[s], self._advect_src_t, self._advect_src_p, length,
+                        cfg.flow_min_step, cfg.flow_max_steps, not cfg.nearest,
+                        quad=quads[s])
+                        for s, length in ((0, -alpha), (1, 1.0 - alpha)))
+                exhausted = e0 + e1
+            else:
+                n = self._advect_src_t.shape[0]
+                with spans.span("halfway.march", device=cuda):
+                    t2, p2, times = _halfway_lanes(self._advect_src_t, self._advect_src_p,
+                                                   -alpha, 1.0 - alpha)
+                    t1, p1, exhausted = flow_field_trace_compacted(
+                        self.arrays.tm, self.tfield, times, t2, p2,
+                        cfg.flow_min_step, cfg.flow_max_steps)
+                with spans.span("halfway.fetch", device=cuda):
+                    c0 = _fetch_colors(self.tri_uvs, self.textures[0], t1[:n], p1[:n],
+                                       not cfg.nearest, quad=quads[0])
+                    c1 = _fetch_colors(self.tri_uvs, self.textures[1], t1[n:], p1[n:],
+                                       not cfg.nearest, quad=quads[1])
+            spans.count("halfway.exhausted_lanes", int(exhausted))
+            if exhausted:
+                print(f"[WARNING] texture advection: {exhausted} texel lanes "
+                      f"hit the step cap", file=sys.stderr)
+            with spans.span("halfway.tail", device=cuda):
+                q = _halfway_tail(c0, c1, self._advect_order, self.src_t,
+                                  self.textures[0], self.textures[1], h, w)
+            with spans.span("halfway.copy", device=cuda):
+                result = _to_numpy(q)
+            spans.count("halfway.copies")
+            spans.count("halfway.copy_bytes", q.numel() * q.element_size())
         return result
 
     def save_checkpoint(self, path: str, level: int, s_weight: float,

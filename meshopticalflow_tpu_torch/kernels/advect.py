@@ -26,6 +26,7 @@ import torch
 from meshopticalflow_tpu_torch.kernels.tracing import (
     CHECK_EVERY, TraceMesh, _finish, _flow_init, _flow_step, _tables,
     flow_field_trace, march, whitney_flow_trace)
+from meshopticalflow_tpu_torch.utils import spans
 
 
 def sample_vertex_signal(triangles: torch.Tensor, values: torch.Tensor,
@@ -119,6 +120,7 @@ def sample_texture_bilinear(texture: torch.Tensor, uv: torch.Tensor,
             + c11 * dx * dy + c01 * (1 - dx) * dy)
 
 
+@spans.launches("launch.march_field/flow_field_trace_compacted")
 def flow_field_trace_compacted(tm: TraceMesh, vfield, times, t0, p0, min_step,
                                max_steps: int = 4096, escalate: int = 16,
                                check_every: int = CHECK_EVERY):
@@ -134,7 +136,7 @@ def flow_field_trace_compacted(tm: TraceMesh, vfield, times, t0, p0, min_step,
                                                 max_steps, escalate, check_every)
     t1, p1, stats = march(tm, times, t0, p0, min_step, max_steps * max(int(escalate), 1),
                           vfield=vfield)
-    flow_field_trace_compacted.launches += int(p0.shape[0] > 0)
+    spans.count(flow_field_trace_compacted.key, int(p0.shape[0] > 0))
     return t1, p1, int(stats[0])
 
 
@@ -179,7 +181,6 @@ def flow_field_trace_compacted_plain(tm: TraceMesh, vfield, times, t0, p0, min_s
     return final_t, final_p, int(full["active"].sum())
 
 
-flow_field_trace_compacted.launches = 0
 flow_field_trace_compacted_plain.cuda_calls = 0
 
 

@@ -21,19 +21,20 @@ error raised: no fallback); on CPU tensors it runs its plain twin
 (``panel_lower_solve_plain``, ``panel_upper_solve_plain``,
 ``band_cholesky_plain``: the loops of one or a few small tensor ops a step
 that the port ran before the kernels). Any other mix of devices, types,
-shapes or layouts raises before anything launches. Each wrapper counts its
-launches in ``<wrapper>.launches`` (``LAUNCHES`` by form); each twin counts
-the calls it gets with CUDA tensors in ``<twin>.cuda_calls``.
+shapes or layouts raises before anything launches. Each launch counts into
+utils/spans.py's counter table under ``launch.<wrapper>/<form>``;
+``<wrapper>.launches`` reads the wrapper's forms. Each twin counts the calls
+it gets with CUDA tensors in ``<twin>.cuda_calls``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from collections import Counter
 
 import torch
 
 from meshopticalflow_tpu_torch.kernels.build import CudaLibrary, stream_of
+from meshopticalflow_tpu_torch.utils import spans
 
 MAX_COLUMNS = 32
 FACTOR_BLOCK = 128                 # band_factor's block size (nb)
@@ -160,9 +161,9 @@ def _raise_on(lib, err: int, name: str) -> None:
 
 
 LIBRARY = CudaLibrary("banded", "banded.cu", _bind)
-# launches by form: "panel_sweep/<lower|upper>/<panel type>/<rhs type>",
-# "band_factor/<type>"
-LAUNCHES: Counter = Counter()
+# launches count under "launch.panel_sweep/<lower|upper>/<panel type>/<rhs
+# type>" and "launch.band_factor/<type>"
+WRAPPERS = ("panel_sweep", "band_factor")
 
 
 def _on_cpu(*tensors) -> bool:
@@ -184,6 +185,7 @@ def _check_operands(name: str, tensors: dict) -> torch.device:
     return dev
 
 
+@spans.launches("launch.panel_sweep")
 def panel_sweep(dinv: torch.Tensor, pbelow: torch.Tensor, rhs: torch.Tensor,
                 upper: bool) -> torch.Tensor:
     """One sweep over the solve panels: y from L y = rhs (``upper`` False) or
@@ -216,12 +218,12 @@ def panel_sweep(dinv: torch.Tensor, pbelow: torch.Tensor, rhs: torch.Tensor,
         err = fn(dinv.data_ptr(), pbelow.data_ptr(), rhs.data_ptr(), out.data_ptr(),
                  scratch.data_ptr(), mp, s, bw, c, int(upper), stream_of(dev))
     _raise_on(lib, err, name)
-    panel_sweep.launches += 1
-    LAUNCHES[f"{name}/{'upper' if upper else 'lower'}/{_PANEL_TAGS[dinv.dtype]}/"
-             f"{_RHS_TAGS[rhs.dtype]}"] += 1
+    spans.count(f"launch.{name}/{'upper' if upper else 'lower'}/{_PANEL_TAGS[dinv.dtype]}/"
+                f"{_RHS_TAGS[rhs.dtype]}")
     return out
 
 
+@spans.launches("launch.band_factor")
 def band_factor(s_blocks: torch.Tensor, shift, nb: int, bw: int):
     """The blocked banded Cholesky of ``s_blocks`` (m, nb+bw, nb) with
     ``shift`` added to the diagonal; returns (l_blocks, ok) with ok a device
@@ -249,13 +251,8 @@ def band_factor(s_blocks: torch.Tensor, shift, nb: int, bw: int):
         err = fn(s_blocks.data_ptr(), out.data_ptr(), window.data_ptr(), flags.data_ptr(),
                  m, nb, bw, float(shift), stream_of(dev))
     _raise_on(lib, err, name)
-    band_factor.launches += 1
-    LAUNCHES[f"{name}/{_RHS_TAGS[s_blocks.dtype]}"] += 1
+    spans.count(f"launch.{name}/{_RHS_TAGS[s_blocks.dtype]}")
     return out, flags[0] == 0
-
-
-panel_sweep.launches = 0
-band_factor.launches = 0
 
 
 def grid_sync(blocks: int, n: int, device) -> None:
@@ -271,17 +268,15 @@ def grid_sync(blocks: int, n: int, device) -> None:
 
 def reset_counts() -> None:
     """Zero the launch counts and the twins' calls on CUDA tensors."""
-    panel_sweep.launches = 0
-    band_factor.launches = 0
+    spans.clear(*(f"launch.{w}" for w in WRAPPERS))
     for fn in (panel_lower_solve_plain, panel_upper_solve_plain, band_cholesky_plain):
         fn.cuda_calls = 0
-    LAUNCHES.clear()
 
 
 def counts() -> dict:
     """Launches per kernel and per form, and the twins' calls on CUDA tensors."""
     return dict(panel_sweep=panel_sweep.launches, band_factor=band_factor.launches,
-                by_form=dict(sorted(LAUNCHES.items())),
+                by_form=spans.forms("launch", *WRAPPERS),
                 plain_on_cuda=(panel_lower_solve_plain.cuda_calls
                                + panel_upper_solve_plain.cuda_calls
                                + band_cholesky_plain.cuda_calls))

@@ -4,8 +4,9 @@ The seven kernels of ``csrc/probes.cu`` replace the Mosaic capability probes
 of the reference package's ``scripts/probe_pallas.py``: each exercises, on
 Hopper, the capability its probe tested on the TPU (see the source's header).
 Every wrapper launches its kernel for CUDA tensors or raises, and takes its
-plain PyTorch version for CPU tensors; it counts its launches in
-``<wrapper>.launches`` and its plain version counts CUDA calls in
+plain PyTorch version for CPU tensors; its launches count into
+utils/spans.py's counter table under ``launch.<wrapper>``, which
+``<wrapper>.launches`` reads, and its plain version counts CUDA calls in
 ``<plain>.cuda_calls``, as kernels/spmv.py does.
 
 Entry point (one ``[ok]`` / ``[FAIL]`` line per probe, exit status 1 if any
@@ -39,6 +40,7 @@ import numpy as np
 import torch
 
 from meshopticalflow_tpu_torch.kernels.build import CudaLibrary, raise_on, stream_of
+from meshopticalflow_tpu_torch.utils import spans
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -361,7 +363,7 @@ def _launch(wrapper, entry: str, *args) -> None:
     with torch.cuda.device(dev):
         err = getattr(LIBRARY.load(), entry)(*call, stream_of(dev))
     raise_on(err, entry)
-    wrapper.launches += 1
+    spans.count(wrapper.key)
 
 
 def _plain(fn):
@@ -422,6 +424,7 @@ def bulk_copy_plain(x, start: int, rows: int):
 
 # -- kernels ------------------------------------------------------------------
 
+@spans.launches("launch.scale")
 def scale(x):
     """o = 2 x (p_basic)."""
     if not _check("scale", x):
@@ -434,6 +437,7 @@ def scale(x):
     return o
 
 
+@spans.launches("launch.row_gather")
 def row_gather(x, idx):
     """o[i, j] = x[idx[i, j], j] for x (N, W), idx (M, W) (p_take_along_axis_rows)."""
     if x.dim() != 2 or idx.dim() != 2 or idx.shape[1] != x.shape[1]:
@@ -449,6 +453,7 @@ def row_gather(x, idx):
     return o
 
 
+@spans.launches("launch.flat_gather")
 def flat_gather(x, idx):
     """o = x[idx] for a 1-D x and any-shaped idx (p_flat_gather)."""
     if x.dim() != 1:
@@ -465,6 +470,7 @@ def flat_gather(x, idx):
     return o
 
 
+@spans.launches("launch.flat_gather_order")
 def flat_gather_order(idx, chunk: int, n_chunks: int):
     """The flat gather's ordering pass: chunk ids 0 .. n_chunks-1 sorted by
     their key idx.flat[c * chunk], ties by id (a stable sort), as int32.
@@ -483,6 +489,7 @@ def flat_gather_order(idx, chunk: int, n_chunks: int):
     return order
 
 
+@spans.launches("launch.lane_gather")
 def lane_gather(x, idx):
     """o[i, j] = x[i, idx[i, j]] for x, idx (M, W) (p_dynamic_gather_lanes)."""
     if x.dim() != 2 or idx.shape != x.shape:
@@ -494,6 +501,7 @@ def lane_gather(x, idx):
     return o
 
 
+@spans.launches("launch.block_select")
 def block_select(x, sel, block_rows: int):
     """Output block b = x's block sel[b] + 1, blocks of ``block_rows`` rows
     (p_scalar_prefetch_indexmap)."""
@@ -512,6 +520,7 @@ def block_select(x, sel, block_rows: int):
     return o
 
 
+@spans.launches("launch.accumulate")
 def accumulate(x):
     """o[b] = sum_k x[b, k] for x (B, K, R, W) -> (B * R, W), summed in the
     order k = 0 .. K-1 (p_accumulate_grid)."""
@@ -528,6 +537,7 @@ def accumulate(x):
     return o
 
 
+@spans.launches("launch.bulk_copy")
 def bulk_copy(x, start: int, rows: int):
     """Rows [start, start + rows) of x (N, W) through bulk async copies into
     shared memory and back out (p_dma_hbm_to_vmem)."""
@@ -556,16 +566,12 @@ PLAINS = {scale: scale_plain, row_gather: row_gather_plain,
           flat_gather: flat_gather_plain, lane_gather: lane_gather_plain,
           block_select: block_select_plain, accumulate: accumulate_plain,
           bulk_copy: bulk_copy_plain}
-for _k in KERNELS:
-    _k.launches = 0
-flat_gather_order.launches = 0
 
 
 def reset_counts() -> None:
+    spans.clear(*(k.key for k in KERNELS + (flat_gather_order,)))
     for k in KERNELS:
-        k.launches = 0
         PLAINS[k].cuda_calls = 0
-    flat_gather_order.launches = 0
     flat_gather_order_plain.cuda_calls = 0
 
 

@@ -24,12 +24,12 @@ raises on a misaligned operand rather than take another path.
 
 A CUDA tensor always launches the kernel or raises. A CPU tensor goes to the
 plain PyTorch version (``spmv_ell_plain`` / ``spmv_ell_multi_plain``, a
-gather plus a sum over W). Each wrapper counts its kernel launches in
-``<wrapper>.launches``; each plain version counts the calls it gets with CUDA
-tensors in ``<plain>.cuda_calls`` (the wrappers never make such a call, so
-on the main path that count stays 0). ``LAUNCHES_BY_FORM`` splits the
-launches by form (``form_of``: wrapper, value type, square or rectangular,
-variant).
+gather plus a sum over W). Each launch counts into utils/spans.py's counter
+table under ``launch.<form>`` (``form_of``: wrapper, value type, square or
+rectangular, variant); ``<wrapper>.launches`` reads the wrapper's forms.
+Each plain version counts the calls it gets with CUDA tensors in
+``<plain>.cuda_calls`` (the wrappers never make such a call, so on the main
+path that count stays 0).
 
 The kernels are compiled by nvcc at first use (kernels/build.py) and loaded
 with ctypes.
@@ -39,13 +39,13 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from collections import Counter
 from typing import Callable
 
 import numpy as np
 import torch
 
 from meshopticalflow_tpu_torch.kernels.build import CudaLibrary, raise_on, stream_of
+from meshopticalflow_tpu_torch.utils import spans
 
 MAX_MULTI_COLUMNS = 8
 SLAB_MAX_WIDTH = 16       # widest row the slab ring takes; wider rows use lane groups
@@ -100,7 +100,7 @@ def variant_of(w: int) -> str:
 
 
 def form_of(name: str, cols: torch.Tensor, vals: torch.Tensor, n_in: int) -> str:
-    """The key of a launch in ``LAUNCHES_BY_FORM``:
+    """The form a launch counts under (``launch.<form>``):
     "wrapper/value type/square|rectangular/slab|group"."""
     n, w = cols.shape
     return "/".join((name, _VALUE_TYPES[vals.dtype][0],
@@ -213,7 +213,7 @@ class _Kernels:
 
 
 LIBRARY = CudaLibrary("spmv_ell", "spmv_ell.cu", _Kernels)
-LAUNCHES_BY_FORM: Counter = Counter()
+WRAPPERS = ("spmv_ell", "spmv_ell_multi")
 
 
 def check_columns(cols, n_in: int) -> None:
@@ -294,9 +294,10 @@ def _launch(name: str, cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
         with torch.cuda.device(dev):
             err = fn(p_cols, p_vals, p_x, y.data_ptr(), *sizes, stream_of(dev))
     raise_on(err, name)
-    LAUNCHES_BY_FORM[form] += 1
+    spans.count("launch." + form)
 
 
+@spans.launches("launch.spmv_ell")
 def spmv_ell(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """y (N_out,) = A x for a padded-ELL operator; x (N_in,)."""
     x_dtype = _check("spmv_ell", cols, vals, x, 1)
@@ -305,10 +306,10 @@ def spmv_ell(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.T
     y = torch.empty(cols.shape[0], dtype=x_dtype, device=x.device)
     if y.numel():
         _launch("spmv_ell", cols, vals, x, y, 1)
-        spmv_ell.launches += 1
     return y
 
 
+@spans.launches("launch.spmv_ell_multi")
 def spmv_ell_multi(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Y (N_out, C) = A X for a padded-ELL operator; X (N_in, C), 1 <= C <= 8."""
     x_dtype = _check("spmv_ell_multi", cols, vals, x, 2)
@@ -321,19 +322,13 @@ def spmv_ell_multi(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> t
     y = torch.empty((cols.shape[0], c), dtype=x_dtype, device=x.device)
     if y.numel():
         _launch("spmv_ell_multi", cols, vals, x, y, c)
-        spmv_ell_multi.launches += 1
     return y
-
-
-spmv_ell.launches = 0
-spmv_ell_multi.launches = 0
 
 
 def reset_counts() -> None:
     """Zero the launch counts and the plain-on-CUDA call counts."""
-    spmv_ell.launches = spmv_ell_multi.launches = 0
+    spans.clear(*(f"launch.{w}" for w in WRAPPERS))
     spmv_ell_plain.cuda_calls = spmv_ell_multi_plain.cuda_calls = 0
-    LAUNCHES_BY_FORM.clear()
 
 
 def counts() -> dict:
@@ -341,6 +336,6 @@ def counts() -> dict:
     slab|group"), and plain-version calls on CUDA tensors."""
     return {"spmv_ell": spmv_ell.launches,
             "spmv_ell_multi": spmv_ell_multi.launches,
-            "by_form": dict(sorted(LAUNCHES_BY_FORM.items())),
+            "by_form": spans.forms("launch", *WRAPPERS),
             "plain_on_cuda": spmv_ell_plain.cuda_calls
             + spmv_ell_multi_plain.cuda_calls}

@@ -22,10 +22,11 @@ or step budget; march_field and march_whitney read one row of
 ``march_rows`` a crossing), or raise; the reference package runs these
 marches as XLA while_loops with no Pallas kernel. On CPU tensors they run
 their plain PyTorch versions (``*_plain``), whose arithmetic the kernels
-repeat op for op, so that end points agree bit for bit. Each wrapper counts
-its launches in ``<wrapper>.launches`` (``LAUNCHES`` by kernel); each plain
-version counts the calls it gets with CUDA tensors in
-``<plain>.cuda_calls``. ``gradient_flow_trace`` and
+repeat op for op, so that end points agree bit for bit. Each launch counts
+into utils/spans.py's counter table under ``launch.<kernel>``, and a
+wrapper's under ``launch.<kernel>/<wrapper>`` too, which
+``<wrapper>.launches`` reads; each plain version counts the calls it gets
+with CUDA tensors in ``<plain>.cuda_calls``. ``gradient_flow_trace`` and
 ``flow_field_trace_distance`` are on no CLI's path and stay plain PyTorch.
 
 A plain step is a fixed sequence of elementwise tensor ops plus five
@@ -39,7 +40,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from collections import Counter
 from typing import Dict, Optional
 
 import numpy as np
@@ -48,6 +48,7 @@ import torch
 from meshopticalflow_tpu_torch.geometry.mesh import HostMesh
 from meshopticalflow_tpu_torch.kernels.build import (
     NVCC_FLAGS, CudaLibrary, raise_on, stream_of)
+from meshopticalflow_tpu_torch.utils import spans
 
 CHECK_EVERY = 32
 
@@ -563,7 +564,6 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 # -fmad=false: no a * b + c contracted into one rounding, as the plain
 # version's separate elementwise ops round each product and sum.
 LIBRARY = CudaLibrary("trace", "trace.cu", _bind, flags=NVCC_FLAGS + ("-fmad=false",))
-LAUNCHES: Counter = Counter()
 # each kernel's last launch: (lanes, device int64 [exhausted, lane-steps, max
 # lane-steps, warp-step slots])
 LAST_STATS: Dict[str, tuple] = {}
@@ -639,7 +639,7 @@ def _call(kernel: str, dtype, dev, n: int, args) -> tuple:
         err = fn(*args, t_out.data_ptr(), p_out.data_ptr(), stats.data_ptr(), stream_of(dev))
     raise_on(err, kernel)
     if n:
-        LAUNCHES[kernel] += 1
+        spans.count("launch." + kernel)
     LAST_STATS[kernel] = (n, stats)
     return t_out, p_out, stats
 
@@ -690,6 +690,7 @@ def march_exp(tm: TraceMesh, t_idx: torch.Tensor, p: torch.Tensor, v: torch.Tens
     return _call("exp_map", p.dtype, p.device, n, args + [n, float(eps), int(budget)])
 
 
+@spans.launches("launch.march_field/flow_field_trace")
 def flow_field_trace(tm: TraceMesh, vfield: torch.Tensor, flow_time, t_idx: torch.Tensor,
                      p: torch.Tensor, min_step: float, max_steps: int = 4096,
                      eps: float = 0.0, with_diagnostics: bool = False):
@@ -704,10 +705,11 @@ def flow_field_trace(tm: TraceMesh, vfield: torch.Tensor, flow_time, t_idx: torc
         return flow_field_trace_plain(tm, vfield, flow_time, t_idx, p, min_step, max_steps,
                                       eps, with_diagnostics)
     t1, p1, stats = march(tm, flow_time, t_idx, p, min_step, max_steps, eps, vfield=vfield)
-    flow_field_trace.launches += int(p.shape[0] > 0)
+    spans.count(flow_field_trace.key, int(p.shape[0] > 0))
     return (t1, p1, int(stats[0])) if with_diagnostics else (t1, p1)
 
 
+@spans.launches("launch.march_whitney/whitney_flow_trace")
 def whitney_flow_trace(tm: TraceMesh, ce: torch.Tensor, flow_time, t_idx: torch.Tensor,
                        p: torch.Tensor, min_step: float, max_steps: int = 4096,
                        eps: float = 0.0, with_diagnostics: bool = False):
@@ -720,10 +722,11 @@ def whitney_flow_trace(tm: TraceMesh, ce: torch.Tensor, flow_time, t_idx: torch.
         return whitney_flow_trace_plain(tm, ce, flow_time, t_idx, p, min_step, max_steps,
                                         eps, with_diagnostics)
     t1, p1, stats = march(tm, flow_time, t_idx, p, min_step, max_steps, eps, ce=ce)
-    whitney_flow_trace.launches += int(p.shape[0] > 0)
+    spans.count(whitney_flow_trace.key, int(p.shape[0] > 0))
     return (t1, p1, int(stats[0])) if with_diagnostics else (t1, p1)
 
 
+@spans.launches("launch.exp_map/exp_map")
 def exp_map(tm: TraceMesh, t_idx: torch.Tensor, p: torch.Tensor, v: torch.Tensor,
             max_steps: int = 1024, eps: float = 0.0, with_diagnostics: bool = False):
     """Batched FEM::RiemannianMesh::exp (FEM.inl:834-899): straight-line
@@ -733,13 +736,8 @@ def exp_map(tm: TraceMesh, t_idx: torch.Tensor, p: torch.Tensor, v: torch.Tensor
     if not p.is_cuda:
         return exp_map_plain(tm, t_idx, p, v, max_steps, eps, with_diagnostics)
     t1, p1, stats = march_exp(tm, t_idx, p, v, max_steps, eps)
-    exp_map.launches += int(p.shape[0] > 0)
+    spans.count(exp_map.key, int(p.shape[0] > 0))
     return (t1, p1, int(stats[0])) if with_diagnostics else (t1, p1)
-
-
-flow_field_trace.launches = 0
-whitney_flow_trace.launches = 0
-exp_map.launches = 0
 
 
 def last_stats(kernel: str) -> dict:
@@ -764,19 +762,17 @@ def _wrappers_and_plains():
 
 def reset_counts() -> None:
     """Zero the launch counts and the plain-on-CUDA call counts."""
-    wrappers, plains = _wrappers_and_plains()
-    for fn in wrappers:
-        fn.launches = 0
+    _, plains = _wrappers_and_plains()
+    spans.clear(*(f"launch.{k}" for k in KERNELS))
     for fn in plains:
         fn.cuda_calls = 0
-    LAUNCHES.clear()
 
 
 def counts() -> dict:
     """Launches per kernel and per wrapper, and plain-version calls on CUDA
     tensors."""
     wrappers, plains = _wrappers_and_plains()
-    out = {k: LAUNCHES[k] for k in KERNELS}
+    out = {k: spans.counter("launch." + k) for k in KERNELS}
     out["by_wrapper"] = {fn.__name__: fn.launches for fn in wrappers}
     out["plain_on_cuda"] = sum(fn.cuda_calls for fn in plains)
     return out

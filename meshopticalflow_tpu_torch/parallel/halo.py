@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 import weakref
 from typing import Optional
 
@@ -45,6 +44,7 @@ from meshopticalflow_tpu_torch.solvers.banded import (BandedCholeskySolver,
                                                       band_solve_panels,
                                                       build_band_pattern)
 from meshopticalflow_tpu_torch.solvers.cg import CGStats, _inv_diag, _safe_div
+from meshopticalflow_tpu_torch.utils import spans
 
 _NP_TO_TORCH = {np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64}
 
@@ -376,13 +376,11 @@ def flow_halo_solver(group: DeviceGroup, cols: torch.Tensor, sys_vals: torch.Ten
             _FLOW_HALO_CACHE.pop(next(iter(_FLOW_HALO_CACHE)))
     else:
         ent["h"] = _revalue_halo(ent["h"], sys_vals, diag)
-    t0 = time.time()
-    solver1 = BandedCholeskySolver(ent["pat1"], group.device).factor(c1_vals)
-    if group.device.type == "cuda":
-        torch.cuda.synchronize(group.device)
+    with spans.timed("halo.c1_factor", sync=group.device) as factor:
+        solver1 = BandedCholeskySolver(ent["pat1"], group.device).factor(c1_vals)
     hc = HaloCoarse(p0_idx_p=ent["p0_idx_p"], p0_wt_p=ent["p0_wt_p"], solver=solver1,
                     n1=solver1.pat.n)
-    return HaloFlowSolver(ent["h"], hc, nu=nu, factor_seconds=time.time() - t0)
+    return HaloFlowSolver(ent["h"], hc, nu=nu, factor_seconds=factor.seconds)
 
 
 def _revalue_halo(h: HaloEll, vals: torch.Tensor, diag: torch.Tensor) -> HaloEll:

@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 from typing import Optional
 
 import numpy as np
@@ -46,6 +45,7 @@ from meshopticalflow_tpu_torch.solvers.banded import (
     band_cholesky, band_revalue, build_band_pattern, build_solve_panels,
     panel_lower_solve, panel_upper_solve)
 from meshopticalflow_tpu_torch.solvers.cg import CGStats
+from meshopticalflow_tpu_torch.utils import spans
 
 
 def _csr_to_padded_ell(mat: sp.spmatrix):
@@ -241,18 +241,20 @@ def build_c1_band(c1_ell_cols, nb: int = 128, device="cpu") -> BandedC1:
 
 def _inner1_exact(dinv, pbelow, band: BandedC1, r1: torch.Tensor) -> torch.Tensor:
     """z1 = A1^{-1} r1 through the panelized banded factor; r1 (n1,) or (n1, C).
-    Panels stored in bfloat16 are widened per panel to r1's dtype."""
-    flat = r1[:, None] if r1.dim() == 1 else r1
-    c = flat.shape[1]
-    mp, s, _ = dinv.shape
-    rhs = flat[band.perm]
-    pad = mp * s - band.n1
-    if pad:
-        rhs = torch.cat([rhs, torch.zeros((pad, c), dtype=rhs.dtype, device=rhs.device)])
-    y = panel_lower_solve(dinv, pbelow, rhs.reshape(mp, s, c))
-    x = panel_upper_solve(dinv, pbelow, y)
-    out = x.reshape(mp * s, c)[: band.n1][band.inv_perm]
-    return out[:, 0] if r1.dim() == 1 else out
+    Panels stored in bfloat16 are widened per panel to r1's dtype. A span
+    ``mg.c1_solve``, timed on the device."""
+    with spans.span("mg.c1_solve", device=r1.is_cuda):
+        flat = r1[:, None] if r1.dim() == 1 else r1
+        c = flat.shape[1]
+        mp, s, _ = dinv.shape
+        rhs = flat[band.perm]
+        pad = mp * s - band.n1
+        if pad:
+            rhs = torch.cat([rhs, torch.zeros((pad, c), dtype=rhs.dtype, device=rhs.device)])
+        y = panel_lower_solve(dinv, pbelow, rhs.reshape(mp, s, c))
+        x = panel_upper_solve(dinv, pbelow, y)
+        out = x.reshape(mp * s, c)[: band.n1][band.inv_perm]
+        return out[:, 0] if r1.dim() == 1 else out
 
 
 def _factor_c1_panels(c1_band: BandedC1, c1_ell_vals, c1_diag,
@@ -528,14 +530,13 @@ class _MGBase:
         self.factor_seconds = 0.0
         device = fine_ell_vals.device
         if c1_band is not None:
-            t0 = time.time()
-            self.c1_dinv, self.c1_pbelow, self._c1_ok_dev = _factor_c1_panels(
-                c1_band, c1_ell_vals.to(wd), c1_diag.to(wd), defer_check=True,
-                bf16=c1_bf16)
-            self._c1_factor_args = (c1_band, c1_ell_vals.to(wd), c1_diag.to(wd), c1_bf16)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            self.factor_seconds = time.time() - t0
+            with spans.timed("mg.c1_factor", sync=device) as factor:
+                self.c1_dinv, self.c1_pbelow, self._c1_ok_dev = _factor_c1_panels(
+                    c1_band, c1_ell_vals.to(wd), c1_diag.to(wd), defer_check=True,
+                    bf16=c1_bf16)
+                self._c1_factor_args = (c1_band, c1_ell_vals.to(wd), c1_diag.to(wd),
+                                        c1_bf16)
+            self.factor_seconds = factor.seconds
         n_f, n1 = pack.n_fine, pack.n1
         fine_vals = fine_ell_vals.contiguous()
         c1_vals = c1_ell_vals.to(wd).contiguous()

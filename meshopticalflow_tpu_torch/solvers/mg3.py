@@ -33,7 +33,6 @@ checks allow.
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import numpy as np
@@ -43,6 +42,7 @@ from meshopticalflow_tpu_torch.ops.rows import Rows
 from meshopticalflow_tpu_torch.solvers.cg import CGStats
 from meshopticalflow_tpu_torch.solvers.mg import EllOp, _inv_diag, _safe_div
 from meshopticalflow_tpu_torch.solvers.twolevel import Transfer, _dots, _dscale
+from meshopticalflow_tpu_torch.utils import spans
 
 
 class ThreeLevelSolver:
@@ -73,16 +73,14 @@ class ThreeLevelSolver:
         self.c1 = EllOp(c1_cols, c1_vals, c1_cols.shape[0])
         self.c_inv = _inv_diag(c1_diag.to(dtype))
         self.p01, self.p12 = p01, p12
-        t0 = time.time()
-        a2 = a2_dense.to(dtype)
-        n2 = a2.shape[0]
-        # Tiny Tikhonov guard keeps semi-definite coarsest systems factorable.
-        eps = 1e-7 * torch.max(torch.abs(torch.diagonal(a2)))
-        self.chol2 = torch.linalg.cholesky(
-            a2 + eps * torch.eye(n2, dtype=dtype, device=a2.device))
-        if a2.is_cuda:
-            torch.cuda.synchronize(a2.device)
-        self.factor_seconds = time.time() - t0
+        with spans.timed("mg3.factor", sync=a2_dense.device) as factor:
+            a2 = a2_dense.to(dtype)
+            n2 = a2.shape[0]
+            # Tiny Tikhonov guard keeps semi-definite coarsest systems factorable.
+            eps = 1e-7 * torch.max(torch.abs(torch.diagonal(a2)))
+            self.chol2 = torch.linalg.cholesky(
+                a2 + eps * torch.eye(n2, dtype=dtype, device=a2.device))
+        self.factor_seconds = factor.seconds
         self.omega = omega
         self.nu = nu
 

@@ -28,13 +28,14 @@ quality, as the reference's non-df32 path does.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import List, Optional
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 import torch.nn.functional as nnf
+
+from meshopticalflow_tpu_torch.utils import spans
 
 
 def _pad8(x: int, minimum: int = 8) -> int:
@@ -403,7 +404,7 @@ class NDSolver:
     The inner-solver contract of solvers/refine.py: ``solve(r, ...)``
     returns (x, CGStats) with ``iterations`` 1 (one pair of triangular
     sweeps); the factorization runs at the first solve. ``factor_seconds``
-    is its wall time (synchronized), ``gb_per_iter`` the padded fronts'
+    is its wall time (synchronized while the span record is on), ``gb_per_iter`` the padded fronts'
     gigabytes at 4 bytes a value, the reference's streamed-bytes model."""
 
     def __init__(self, pack: NDPack, levels_dev, sys_vals,
@@ -418,11 +419,9 @@ class NDSolver:
         self.gb_per_iter = pack.stats["padded_front_mb"] / 1e3
 
     def factor(self) -> None:
-        t0 = time.time()
-        self.factors = _factor(self.levels_dev, self.sys_vals)
-        if self.sys_vals.device.type == "cuda":
-            torch.cuda.synchronize(self.sys_vals.device)
-        self.factor_seconds = time.time() - t0
+        with spans.timed("multifrontal.factor", sync=self.sys_vals.device) as factor:
+            self.factors = _factor(self.levels_dev, self.sys_vals)
+        self.factor_seconds = factor.seconds
 
     def solve_direct(self, r):
         if self.factors is None:

@@ -24,7 +24,6 @@ gather and sums in a fixed order.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
@@ -35,6 +34,7 @@ import torch
 from meshopticalflow_tpu_torch.solvers.cg import CGStats
 from meshopticalflow_tpu_torch.solvers.mg import (EllOp, _csr_to_padded_ell, _ell_op,
                                                   _inv_diag, _safe_div)
+from meshopticalflow_tpu_torch.utils import spans
 
 
 @dataclasses.dataclass
@@ -96,16 +96,16 @@ class TwoLevelSolver:
         self.transfer = transfer
         self.omega = omega
         self.nu = nu
-        t0 = time.time()
-        n_c, w0 = coarse_cols.shape
-        a0 = sp.csc_matrix((coarse_vals.detach().to("cpu", torch.float64).numpy().ravel(),
-                            (np.repeat(np.arange(n_c), w0),
-                             coarse_cols.cpu().numpy().ravel())), shape=(n_c, n_c))
-        # Tiny Tikhonov guard for semi-definite coarse systems (the conformal
-        # constants' null space), scaled to the diagonal magnitude.
-        eps = 1e-12 * float(np.abs(a0.diagonal()).max() or 1.0)
-        self.coarse_lu = spla.splu(a0 + eps * sp.identity(n_c, format="csc"))
-        self.factor_seconds = time.time() - t0
+        with spans.timed("twolevel.factor") as factor:
+            n_c, w0 = coarse_cols.shape
+            a0 = sp.csc_matrix((coarse_vals.detach().to("cpu", torch.float64).numpy().ravel(),
+                                (np.repeat(np.arange(n_c), w0),
+                                 coarse_cols.cpu().numpy().ravel())), shape=(n_c, n_c))
+            # Tiny Tikhonov guard for semi-definite coarse systems (the conformal
+            # constants' null space), scaled to the diagonal magnitude.
+            eps = 1e-12 * float(np.abs(a0.diagonal()).max() or 1.0)
+            self.coarse_lu = spla.splu(a0 + eps * sp.identity(n_c, format="csc"))
+        self.factor_seconds = factor.seconds
         self.n_coarse = n_c
 
     @property

@@ -6,8 +6,10 @@ symbolic analyses are cached on disk keyed by input-content hashes + config,
 so a repeat construction of the same problem loads npz files instead of
 recomputing them. Two changes from the reference: the key tag ``_VERSION``
 is the port's own, so an npz one package wrote is never read by the other
-under the same $MESHFLOW_CACHE, and the JSON sidecars (pinned refinement
-schedules, which the port does not have) are left out.
+under the same $MESHFLOW_CACHE, the JSON sidecars (pinned refinement
+schedules, which the port does not have) are left out, and ``cached`` reads
+and writes inside the spans ``artifact.read`` and ``artifact.write``
+(utils/spans.py).
 
 Layout: $MESHFLOW_CACHE (default ~/.cache/meshflow_artifacts)/<tag>-<key>.npz
 Scipy CSR matrices are stored as <name>__{data,indices,indptr,shape}.
@@ -21,6 +23,8 @@ from typing import Callable, Dict
 
 import numpy as np
 import scipy.sparse as sp
+
+from meshopticalflow_tpu_torch.utils import spans
 
 # Bump when cached array semantics change.
 _VERSION = "torch-r1"
@@ -142,12 +146,13 @@ def cached(tag: str, key: str, compute: Callable[[], Dict],
     path = os.path.join(cache_dir(), f"{tag}-{key}.npz")
     if os.path.exists(path):
         try:
-            with np.load(path, allow_pickle=False) as z:
+            with spans.span("artifact.read"), np.load(path, allow_pickle=False) as z:
                 return _unflatten(z, path=path, lazy_keys=lazy_keys)
         except Exception:
             pass  # corrupt/stale -> recompute
     out = compute()
     tmp = path + f".{os.getpid()}.tmp.npz"   # np.savez appends .npz otherwise
-    np.savez(tmp, **_flatten(out))
-    os.replace(tmp, path)
+    with spans.span("artifact.write"):
+        np.savez(tmp, **_flatten(out))
+        os.replace(tmp, path)
     return out
