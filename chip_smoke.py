@@ -6,9 +6,9 @@ Runs from the root of a checkout on a machine with one NVIDIA GPU, in phases;
 any failure raises, so the run exits non-zero and prints no final ok line.
 
   1. the card's name and power limit; refuse to run without a GPU;
-  2. build the four CUDA libraries from the checkout's sources (SpMV,
-     probes, the geodesic march, the banded Cholesky; one nvcc each,
-     started together, with a fifth beside them: the march kernel's
+  2. build the five CUDA libraries from the checkout's sources (SpMV,
+     probes, the geodesic march, the banded Cholesky, the vertex bake; one
+     nvcc each, started together, with a sixth beside them: the march kernel's
      earlier design, march_sweep.py's "pr13" case, for phase 7m's
      comparison) and,
      beside them, the native host library
@@ -153,6 +153,11 @@ any failure raises, so the run exits non-zero and prints no final ok line.
      every draw records the banded launches and fails if a twin ran on
      CUDA tensors, and the multigrid, halo, spectrum and phase 4's
      multigrid draws fail without both banded kernels;
+  7k. bake_vertices (csrc/bake.cu) on the main path's mesh (393,216
+     triangles) at 2048^2 and 4096^2, bilinear and nearest: equal to the
+     host copy (flow/pipeline.py:sample_texture_to_vertices) and to its
+     plain twin bit for bit, timed warm beside its byte bound, the twin and
+     the host copy (``python3 chip_smoke.py --bake`` runs this phase alone);
   8. the result lines.
 
 Every phase that drives a path (3, 5, 6, 6b, 6e, 6f, 6c, 6d, 6g) sets the
@@ -161,7 +166,7 @@ print and record the SpMV launches per form, the march kernels'
 launches (every draw that traces launches them, and no plain march runs on
 CUDA tensors) and the banded kernels' launches. The draws of phases 5, 6, 6b,
 6e, 6f and 6g run with the artifact cache off, so their init is cold as in
-earlier records. The second-to-last line is a JSON record of the fourteen
+earlier records. The second-to-last line is a JSON record of the fifteen
 kernels; the last line is {"ok": true, "device": {...}}. The full records
 go to chiprun_out/chip_smoke/ (kernels.json, main_path_{jacobi,multigrid,
 conformal,connection,xla,mf,halo,xla_group,warm_init,tracking,spectrum,
@@ -372,13 +377,14 @@ def launches_where(counts: dict, kernel=None, dtype=None, shape=None, variant=No
 
 
 def reset_counts(spmv) -> None:
-    """Zero the launch counts of the SpMV, march and banded kernels and
-    their plain versions' calls on CUDA tensors."""
-    from meshopticalflow_tpu_torch.kernels import banded, tracing
+    """Zero the launch counts of the SpMV, march, banded and bake kernels
+    and their plain versions' calls on CUDA tensors."""
+    from meshopticalflow_tpu_torch.kernels import bake, banded, tracing
 
     spmv.reset_counts()
     tracing.reset_counts()
     banded.reset_counts()
+    bake.reset_counts()
 
 
 def launch_counts(spmv) -> dict:
@@ -386,12 +392,13 @@ def launch_counts(spmv) -> dict:
     kernels' launches by kernel and by wrapper, the plain marches' calls on
     CUDA tensors) under "march" and kernels/banded.py:counts (panel_sweep
     and band_factor by form, the twins' calls on CUDA tensors) under
-    "banded"."""
-    from meshopticalflow_tpu_torch.kernels import banded, tracing
+    "banded" and bake_vertices' launches under "bake"."""
+    from meshopticalflow_tpu_torch.kernels import bake, banded, tracing
 
     out = spmv.counts()
     out["march"] = tracing.counts()
     out["banded"] = banded.counts()
+    out["bake"] = bake.bake_vertices.launches
     return out
 
 
@@ -2925,6 +2932,122 @@ def check_banded(prob, pack, draws) -> dict:
                 barrier_us=barrier_us)
 
 
+BAKE_SIZES = (2048, 4096)
+
+
+def _bake_touched(uvs: np.ndarray, size: int, bilinear: bool) -> int:
+    """Distinct texels that the bake's taps read in one size x size texture."""
+    uv = uvs.reshape(-1, 2)
+    x = np.clip(uv[:, 0], 0, 1) * (size - 1)
+    y = np.clip(1.0 - uv[:, 1], 0, 1) * (size - 1)
+    x0, y0 = np.floor(x).astype(np.int64), np.floor(y).astype(np.int64)
+    taps = [(y0, x0)]
+    if bilinear:
+        x1, y1 = np.minimum(x0 + 1, size - 1), np.minimum(y0 + 1, size - 1)
+        taps += [(y0, x1), (y1, x1), (y1, x0)]
+    return int(np.unique(np.concatenate([yy * size + xx for yy, xx in taps])).size)
+
+
+def check_bake() -> list:
+    """Phase 7k: bake_vertices on the main path's mesh at BAKE_SIZES,
+    bilinear and nearest, both textures the golden pair upsampled: equal to
+    the host copy and to the twin bit for bit; device ms warm (median_ms)
+    and cold (cold_ms); the twin's device ms on the same CUDA tensors; the
+    host copy's wall ms (both textures); ``pair_ms``, the wall ms of what
+    from_texture_inputs does around the kernel (the two uploads, the launch,
+    the download); the byte bound: uvs, wedge ids and offsets read once,
+    the output written once, and the texels that the taps read (3 bytes
+    each, two textures)."""
+    import torch
+
+    from meshopticalflow_tpu_torch.flow.pipeline import sample_texture_to_vertices
+    from meshopticalflow_tpu_torch.io.png import read_png_rgb
+    from meshopticalflow_tpu_torch.kernels import bake
+    from meshopticalflow_tpu_torch.utils.testing import main_path_mesh
+
+    tris, uvs = main_path_mesh(os.path.join(GOLD, "cube.ply"))
+    n_vertices, n_wedges = int(tris.max()) + 1, tris.size
+    wedges, offsets = bake.wedge_table(tris, n_vertices, DEVICE)
+    golden = [read_png_rgb(os.path.join(GOLD, n)) for n in ("mA.png", "mB.png")]
+    report = []
+    for size in BAKE_SIZES:
+        f = size // golden[0].shape[0]
+        textures = np.stack([np.repeat(np.repeat(g, f, axis=0), f, axis=1) for g in golden])
+        tex = torch.from_numpy(textures).to(DEVICE)
+        uv = torch.from_numpy(uvs.reshape(-1, 2)).to(DEVICE)
+        for bilinear in (True, False):
+            bake.reset_counts()
+            got = bake.bake_vertices(tex, uv, wedges, offsets, bilinear)
+            launches = bake.bake_vertices.launches
+            twin = bake.bake_vertices_plain(tex, uv, wedges, offsets, bilinear)
+            t0 = time.perf_counter()
+            host = np.stack([sample_texture_to_vertices(tris, uvs, t, n_vertices, bilinear)
+                             for t in textures])
+            host_ms = (time.perf_counter() - t0) * 1e3
+            equal = bool(np.array_equal(got.cpu().numpy(), host)) and bool(torch.equal(got, twin))
+            if not equal or launches != 1:
+                raise RuntimeError(f"bake {size}^2 bilinear={bilinear}: equal {equal}, "
+                                   f"{launches} launches")
+
+            def pair():
+                t = torch.from_numpy(textures).to(DEVICE)
+                u = torch.from_numpy(uvs.reshape(-1, 2)).to(DEVICE)
+                return bake.bake_vertices(t, u, wedges, offsets, bilinear).cpu().numpy()
+
+            pair_times = []
+            for _ in range(7):
+                t0 = time.perf_counter()
+                pair()
+                pair_times.append((time.perf_counter() - t0) * 1e3)
+            touched = _bake_touched(uvs, size, bilinear)
+            nbytes = 20 * n_wedges + 4 * (n_vertices + 1) + 48 * n_vertices + 6 * touched
+            rec = dict(size=size, bilinear=bilinear, equal=equal, wedges=n_wedges,
+                       vertices=n_vertices, touched_texels=touched, bytes=nbytes,
+                       bound_ms=nbytes / (HBM_TB_S * 1e12) * 1e3,
+                       ms=median_ms(lambda: bake.bake_vertices(tex, uv, wedges, offsets,
+                                                               bilinear)),
+                       ms_cold=cold_ms(lambda: bake.bake_vertices(tex, uv, wedges, offsets,
+                                                                  bilinear)),
+                       plain_ms=median_ms(lambda: bake.bake_vertices_plain(
+                           tex, uv, wedges, offsets, bilinear), reps=5, inner=2),
+                       host_ms=host_ms, pair_ms=float(np.median(pair_times)))
+            rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+            report.append(rec)
+            phase("7k", f"bake_vertices {size}^2 {'bilinear' if bilinear else 'nearest'}: "
+                        f"bit for bit with the host copy and the twin; kernel "
+                        f"{rec['ms'] * 1e3:.2f} us warm, {rec['ms_cold'] * 1e3:.2f} us cold, "
+                        f"bound {rec['bound_ms'] * 1e3:.2f} us ({nbytes / 1e6:.2f} MB, "
+                        f"{touched} texels tapped; share {rec['bound_share']:.3f}); twin "
+                        f"{rec['plain_ms'] * 1e3:.1f} us; host copy {host_ms:.1f} ms; "
+                        f"uploads + kernel + download {rec['pair_ms']:.2f} ms")
+        del tex, uv
+    bake.reset_counts()
+    return report
+
+
+def bake_only(card: str) -> int:
+    """``python3 chip_smoke.py --bake``: phase 7k alone (its build, then
+    check_bake); records chiprun_out/chip_smoke/bake.json."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from meshopticalflow_tpu_torch.kernels import bake
+
+    os.makedirs(WORK, exist_ok=True)
+    t0 = time.time()
+    bake.LIBRARY.load()
+    phase(2, f"built {os.path.relpath(bake.LIBRARY.path(), REPO)} in {time.time() - t0:.2f} s")
+    report = check_bake()
+    with open(os.path.join(WORK, "bake.json"), "w") as f:
+        json.dump(dict(card=card, bake=report), f, indent=1)
+    print(card)
+    print(json.dumps({"bake": report}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def iteration_split(prob):
     """One multigrid PCG iteration of the last level's flow system, each
     part timed alone: the exact c1 solve (the two banded sweeps), the whole
@@ -2987,6 +3110,8 @@ def main() -> int:
     phase(1, f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     if sys.argv[1:] == ["--nccl"]:
         return nccl_only(card)
+    if sys.argv[1:] == ["--bake"]:
+        return bake_only(card)
     # the artifact cache, the baked frames, the tracker's and the spectrum's
     # outputs (hundreds of MB) stay out of the records directory
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=REPO) as scratch:
@@ -3002,7 +3127,7 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
     sys.path.insert(0, REPO)
     import march_sweep
     from meshopticalflow_tpu_torch import native
-    from meshopticalflow_tpu_torch.kernels import banded, build, probes, spmv, tracing
+    from meshopticalflow_tpu_torch.kernels import bake, banded, build, probes, spmv, tracing
 
     os.makedirs(WORK, exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3013,12 +3138,13 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
     with ThreadPoolExecutor(1) as pool:
         host_lib = pool.submit(native.build)      # g++, beside the nvcc builds
         libs = build.build_all([spmv.LIBRARY, probes.LIBRARY, tracing.LIBRARY,
-                                banded.LIBRARY, earlier_march])
+                                banded.LIBRARY, bake.LIBRARY, earlier_march])
         libs["meshhost"] = host_lib.result()
     spmv.LIBRARY.load()
     probes.LIBRARY.load()
     tracing.LIBRARY.load()
     banded.LIBRARY.load()
+    bake.LIBRARY.load()
     if native.get_lib() is None:
         raise RuntimeError("the native host library does not load")
     phase(2, f"built {', '.join(os.path.relpath(p, REPO) for p in libs.values())} "
@@ -3082,6 +3208,7 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
     split = iteration_split(prob)
     del prob
     torch.cuda.empty_cache()
+    bake_report = check_bake()
 
     def row(name, op, dtype="float32"):
         return next(r for r in spmv_report
@@ -3131,6 +3258,12 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None, **extra,
             **{f"launches_{tag}_path": n[name] for tag, n in banded_report["launches"].items()}))
+    r = next(r for r in bake_report if r["size"] == size and r["bilinear"])
+    kernels.append(dict(
+        name="bake_vertices", route="cuda", source="meshopticalflow_tpu_torch/csrc/bake.cu",
+        replaces=None, launches=draws["multigrid"]["launches"]["bake"], max_abs_err=0.0,
+        ms=r["ms"], plain_ms=r["plain_ms"], host_ms=r["host_ms"], bound_ms=r["bound_ms"],
+        bound_by="bytes", library_ms=None))
     for fn_name, rec in probe_report.items():
         kernels.append(dict(
             name=fn_name, route="cuda", source="meshopticalflow_tpu_torch/csrc/probes.cu",
@@ -3141,7 +3274,7 @@ def run_phases(card: str, scratch: str, t_start: float) -> int:
     elapsed = time.time() - t_start
     with open(os.path.join(WORK, "kernels.json"), "w") as f:
         json.dump(dict(card=card, rates=rates, spmv=spmv_report, probes=probe_report,
-                       march=march_report, banded=banded_report,
+                       march=march_report, banded=banded_report, bake=bake_report,
                        iteration_split=split, sweeps=mg_rec["sweeps"], goldens=goldens,
                        twolevel_split={t: draws[t]["split"] for t in ("conformal",
                                                                       "connection")},

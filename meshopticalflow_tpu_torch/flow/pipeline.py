@@ -77,6 +77,7 @@ from meshopticalflow_tpu_torch.geometry.rasterize import TextureSource, rasteriz
 from meshopticalflow_tpu_torch.geometry.subdivide import subdivide_tracked
 from meshopticalflow_tpu_torch.io.ply import read_triangle_mesh, write_ply_colored
 from meshopticalflow_tpu_torch.io.png import read_png_rgb, write_png_rgb
+from meshopticalflow_tpu_torch.kernels import bake as bake_kernel
 from meshopticalflow_tpu_torch.kernels.advect import (
     _fetch_colors, build_quad_table, flow_field_trace_compacted, resample_signal,
     sample_vertex_signal, vertex_mean)
@@ -574,8 +575,8 @@ class FlowProblem:
         signals: np.ndarray,               # (2, V, 3) raw input signals
         vertices: Optional[np.ndarray] = None,
         texture_source: Optional[TextureSource] = None,
-        tri_uvs: Optional[np.ndarray] = None,
-        textures: Optional[np.ndarray] = None,       # (2, H, W, 3) uint8
+        tri_uvs=None,         # (T, 3, 2) wedge uvs, an array or a tensor
+        textures=None,        # (2, H, W, 3) uint8, an array or a tensor
         vertex_colors: Optional[np.ndarray] = None,  # (2, V, 3)
         device="cuda",
         root=None,   # (tris0, verts0, parent, bary): build the MG hierarchy
@@ -634,9 +635,8 @@ class FlowProblem:
         with step("init.textures", "exp_remap"):
             self.textures = None if textures is None else self._cached(
                 self._devkey("textures", self._signals_key) if self._signals_key else None,
-                lambda: torch.as_tensor(np.asarray(textures)).to(**kw))
-            self.tri_uvs = None if tri_uvs is None else \
-                torch.as_tensor(np.asarray(tri_uvs)).to(**kw)
+                lambda: torch.as_tensor(textures).to(**kw))
+            self.tri_uvs = None if tri_uvs is None else torch.as_tensor(tri_uvs).to(**kw)
             self.vertex_colors = None if vertex_colors is None else \
                 torch.as_tensor(np.asarray(vertex_colors)).to(**kw)
         self._exp_exhausted = None
@@ -945,14 +945,23 @@ class FlowProblem:
             if tex0.shape != tex1.shape:
                 raise ValueError(f"texture shapes differ: {tex0.shape} vs {tex1.shape}")
             n_vertices = int(tris.max()) + 1
+            dev = device_group.device if device_group is not None else resolve_device(device)
             with spans.timed("init.bake") as bake:
                 tex_hashes = (file_hash(texture_paths[0]), file_hash(texture_paths[1]))
-                signals = cached(
-                    "bake", key_of("bake", geo_key, *tex_hashes, config.nearest),
-                    lambda: dict(signals=np.stack([
-                        sample_texture_to_vertices(tris, uvs, t, n_vertices, not config.nearest)
-                        for t in (tex0, tex1)])),
-                    enabled=use_cache)["signals"]
+                # the pair's textures and wedge uvs go up once: the bake reads
+                # them, and the problem casts its textures and tri_uvs from them
+                tex_dev = torch.from_numpy(np.stack([tex0, tex1])).to(dev)
+                uvs_dev = torch.from_numpy(np.ascontiguousarray(uvs, np.float64)).to(dev)
+
+                def baked():
+                    wedges, offsets = devcache.get_or_build(
+                        ("bake_table", geo_key) if use_cache else None,
+                        lambda: bake_kernel.wedge_table(tris, n_vertices, dev), dev)
+                    return dict(signals=bake_kernel.bake_vertices(
+                        tex_dev, uvs_dev, wedges, offsets, not config.nearest).cpu().numpy())
+
+                signals = cached("bake", key_of("bake", geo_key, *tex_hashes, config.nearest),
+                                 baked, enabled=use_cache)["signals"]
             h, w = tex0.shape[:2]
 
             def raster():
@@ -964,7 +973,7 @@ class FlowProblem:
                     ("texsrc_host", geo_key, w, h, config.pad_radius) if use_cache else None,
                     raster, "host")
             problem = cls(config, mesh, signals, vertices=verts, texture_source=src,
-                          tri_uvs=uvs, textures=np.stack([tex0, tex1]), device=device,
+                          tri_uvs=uvs_dev, textures=tex_dev, device=device,
                           root=root, cache_key=geo_key,
                           signals_key=key_of("sig", geo_key, *tex_hashes),
                           device_group=device_group, job=job)

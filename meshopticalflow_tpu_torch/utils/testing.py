@@ -5,7 +5,8 @@ Jax-free: ``octa_sphere`` is a copy of meshopticalflow_tpu/utils/testing.py's
 the spectrum's reference on the card, where no JAX package is installed;
 ``halo_test_system`` is the halo solvers' system on the card;
 ``flat_grid`` and ``march_lanes`` are the march kernels' meshes and lanes;
-``band_test_blocks`` the banded kernels' systems.
+``band_test_blocks`` the banded kernels' systems; ``main_path_mesh`` the
+bake kernel's mesh.
 """
 
 from __future__ import annotations
@@ -147,3 +148,20 @@ def band_test_blocks(m: int, nb: int, bw: int, seed: int = 0,
     if indefinite:
         blocks[m // 2, 0, 0] = -1.0
     return blocks
+
+
+def main_path_mesh(cube_path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """The main path's textured mesh from the golden cube ``cube_path``:
+    subdivided to the 24,576-triangle root (0.024 of its diagonal), then at
+    the OpticalFlow CLI's default edge length (0.006): 393,216 triangles,
+    196,610 vertices. Returns (triangles (T, 3) int32, wedge uvs (T, 3, 2)
+    float64)."""
+    from meshopticalflow_tpu_torch.geometry.subdivide import subdivide_tracked
+    from meshopticalflow_tpu_torch.io.ply import read_triangle_mesh
+
+    data = read_triangle_mesh(cube_path)
+    diag = float(np.linalg.norm(data.vertices.max(0) - data.vertices.min(0)))
+    tris, verts, uvs = data.faces, data.vertices, data.face_uvs
+    for fraction in (0.024, 0.006):
+        tris, verts, uvs, _, _ = subdivide_tracked(tris, verts, uvs, fraction * diag)
+    return tris, uvs

@@ -7,6 +7,8 @@ runs on a machine that has only the port's dependencies:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -928,3 +930,119 @@ def test_cuda_banded_wrappers_refuse():
         kb.band_factor(torch.zeros((4, 256, 128), device=dev).transpose(1, 2).contiguous()
                        .transpose(1, 2), 0.0, 128, 128)
     assert (kb.panel_sweep.launches, kb.counts()["plain_on_cuda"]) == before
+
+
+# -- the texture bake (kernels/bake.py, csrc/bake.cu) ----------------------------
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def bake_mesh():
+    """The main path's mesh: 393,216 triangles on the cube root."""
+    _require_card()
+    from meshopticalflow_tpu_torch.utils.testing import main_path_mesh
+
+    tris, uvs = main_path_mesh(os.path.join(REPO, "tests", "golden", "cube.ply"))
+    assert len(tris) == 393216
+    return tris, uvs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bilinear", [True, False])
+@pytest.mark.parametrize("size", [2048, 4096])
+def test_cuda_bake_matches_host_copy(bake_mesh, size, bilinear):
+    """The kernel equals the host copy (flow/pipeline.py:
+    sample_texture_to_vertices) and the plain twin bit for bit, one launch
+    for both textures."""
+    _require_card()
+    from meshopticalflow_tpu_torch.flow.pipeline import sample_texture_to_vertices
+    from meshopticalflow_tpu_torch.kernels import bake
+
+    tris, uvs = bake_mesh
+    n_vertices = int(tris.max()) + 1
+    textures = np.random.default_rng(size).integers(0, 256, (2, size, size, 3), dtype=np.uint8)
+    wedges, offsets = bake.wedge_table(tris, n_vertices, "cuda")
+    tex = torch.from_numpy(textures).cuda()
+    uv = torch.from_numpy(uvs.reshape(-1, 2)).cuda()
+    before, twin_before = bake.bake_vertices.launches, bake.bake_vertices_plain.cuda_calls
+    got = bake.bake_vertices(tex, uv, wedges, offsets, bilinear)
+    torch.cuda.synchronize()
+    assert bake.bake_vertices.launches == before + 1
+    assert bake.bake_vertices_plain.cuda_calls == twin_before
+    host = np.stack([sample_texture_to_vertices(tris, uvs, t, n_vertices, bilinear)
+                     for t in textures])
+    assert got.shape == (2, n_vertices, 3) and got.dtype == torch.float64
+    assert np.array_equal(got.cpu().numpy(), host)
+    twin = bake.bake_vertices_plain(tex, uv, wedges, offsets, bilinear)
+    assert torch.equal(got, twin)
+
+
+def _golden_pair(tmp_path, monkeypatch, flip=False):
+    monkeypatch.setenv("MESHFLOW_CACHE", str(tmp_path / "artifacts"))
+    gold = os.path.join(REPO, "tests", "golden")
+    paths = [os.path.join(gold, "mA.png"), os.path.join(gold, "mB.png")]
+    return os.path.join(gold, "cube.ply"), tuple(paths[::-1] if flip else paths)
+
+
+@pytest.mark.gpu
+def test_cuda_bake_launches_once_per_construction(tmp_path, monkeypatch):
+    _require_card()
+    from meshopticalflow_tpu_torch.config import FlowConfig
+    from meshopticalflow_tpu_torch.flow.pipeline import FlowProblem
+    from meshopticalflow_tpu_torch.kernels import bake
+
+    mesh, paths = _golden_pair(tmp_path, monkeypatch)
+    cfg = FlowConfig(subdivide_edge_length=0.06, levels=1, artifact_cache=False)
+    before, twin_before = bake.bake_vertices.launches, bake.bake_vertices_plain.cuda_calls
+    for k in (1, 2):
+        FlowProblem.from_texture_inputs(mesh, paths, cfg, device="cuda")
+        assert bake.bake_vertices.launches == before + k
+    assert bake.bake_vertices_plain.cuda_calls == twin_before
+
+
+@pytest.mark.gpu
+def test_cuda_bake_frees_its_buffers(tmp_path, monkeypatch):
+    """After a construction whose bake runs on the card, no buffer of the
+    bake is left: its uploads and its output are gone when
+    from_texture_inputs returns, and the memory the process holds once the
+    problem is dropped grew by the device cache's new entries alone (the
+    pair's textures and signals; the wedge table came with the first pair)."""
+    _require_card()
+    import gc
+    import weakref
+
+    from meshopticalflow_tpu_torch.config import FlowConfig
+    from meshopticalflow_tpu_torch.flow.pipeline import FlowProblem
+    from meshopticalflow_tpu_torch.kernels import bake
+    from meshopticalflow_tpu_torch.utils import devcache
+
+    cfg = FlowConfig(subdivide_edge_length=0.06, levels=1)
+    devcache.clear()
+    mesh, paths = _golden_pair(tmp_path, monkeypatch)
+    FlowProblem.from_texture_inputs(mesh, paths, cfg, device="cuda")
+    gc.collect()
+    torch.cuda.synchronize()
+    held, cached = torch.cuda.memory_allocated(), devcache.total_bytes()
+
+    refs = []
+    shipped = bake.bake_vertices
+
+    def spy(textures, uvs, wedges, offsets, bilinear=True):
+        out = shipped(textures, uvs, wedges, offsets, bilinear)
+        refs.extend(weakref.ref(t) for t in (textures, uvs, out))
+        return out
+
+    monkeypatch.setattr(bake, "bake_vertices", spy)
+    mesh, paths = _golden_pair(tmp_path, monkeypatch, flip=True)   # a pair not baked yet
+    prob = FlowProblem.from_texture_inputs(mesh, paths, cfg, device="cuda")
+    assert len(refs) == 3 and all(r() is None for r in refs)
+    del prob
+    gc.collect()
+    torch.cuda.synchronize()
+    grown, new_entries = torch.cuda.memory_allocated() - held, devcache.total_bytes() - cached
+    assert new_entries > 0
+    # the allocator rounds each block up to 512 bytes; any bake buffer here
+    # is over 64 KB
+    assert abs(grown - new_entries) <= 16 * 1024, (grown, new_entries)
+    devcache.clear()
